@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Builds the CUDA kernels from the sources in this checkout, holds each
+kernel against its plain PyTorch version on the card, then serves
+Delicious-200K requests (full width, random weights from a seed) through
+the port's main path: the XC model's query embedding, ``lss_predict``
+(the fused ``lss_topk`` kernel), ``retrieve`` (the ``simhash_codes``
+kernel) for label recall, and the exact full head for comparison.
+
+Every phase prints one JSON line; a failed check or an exception exits
+non-zero.  The line before the last is the card's name and power limit
+(``nvidia-smi``), the last is ``{"ok": true, "device": {...}}``.
+
+Run from the repository root, on a machine with one CUDA device::
+
+    python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:
+    from repro_torch import resolve_device
+    from repro_torch.configs.paper_datasets import DELICIOUS
+    from repro_torch.core.lss import (LSSConfig, avg_sample_size, build_index,
+                                      label_recall, lss_forward, lss_predict,
+                                      precision_at_k, retrieve)
+    from repro_torch.core.simhash import (augment_neurons, augment_queries,
+                                          init_hyperplanes, unit)
+    from repro_torch.core.topk import NEG_INF, topk_lowest_index
+    from repro_torch.data.synthetic import xc_dataset
+    from repro_torch.kernels import _build, registry
+    from repro_torch.kernels.lss_topk import lss_topk
+    from repro_torch.kernels.lss_topk import ops as lss_topk_ops
+    from repro_torch.kernels.lss_topk.ref import lss_topk_ref
+    from repro_torch.kernels.simhash_codes import simhash_codes
+    from repro_torch.kernels.simhash_codes.ops import simhash_codes_cuda
+    from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
+    from repro_torch.models.xc import XCModel
+    from repro_torch.testing.parity import (assert_close, assert_ints_equal,
+                                            assert_topk_ids_equal,
+                                            margin_rows)
+except ImportError as e:
+    sys.exit(f"chip_smoke: {e} (run it from the repository root)")
+
+# ---- the parity contract on the card (kernel vs plain, both on the card)
+MARGIN_EPS = 1e-5          # rows with min |theta^T q_hat| <= this may flip a
+MAX_EXCLUDED_FRAC = 0.01   # hash bit; they are excluded (< 1% of the rows)
+LOGIT_RTOL = 1e-4          # fp32 top logits: the kernel sums in another
+LOGIT_ATOL = 1e-4          # order than the plain version's einsum
+TIE_TOL = 1e-4             # top ids exact where neighbours differ by more
+# LOGIT_ATOL and TIE_TOL are for logits of order 1.  Where the largest
+# |top logit| is below 1 (the random model's main path gives ~1e-4), both
+# scale down with it, so the check still bites at that scale.
+# main path: LSS top logits against the full head's logits of the same ids
+# (both fp32 dots of the same vectors; the random model's logits are ~1e-4)
+HEAD_RTOL, HEAD_ATOL = 1e-4, 1e-8
+
+# ---- the card's published peaks (H100 SXM data sheet) for bound_ms
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
+SPIN_CLOCK_HZ = 1.98e9     # boost clock: converts host seconds to spin cycles
+
+SEED = 0
+N_REQUESTS, BATCH, TOP_K = 2048, 256, 5
+TIME_ITERS = 20
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def time_ms(fn, iters: int = TIME_ITERS) -> float:
+    """Median device time of ``fn`` in ms over ``iters`` launches, each
+    with a cold L2 (a 256 MB buffer is written before each launch).
+
+    Before each launch the card spins for twice as long as one call of
+    ``fn`` takes on the host, so ``fn``'s work is queued before the start
+    event fires: the events bracket device time, not host time."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()                                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_cycles = int(2 * (time.perf_counter() - t0) * SPIN_CLOCK_HZ)
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(spin_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------- checks --
+
+def compare_simhash(x, theta, k_bits, n_tables):
+    """Kernel vs plain on the same unit rows: exact on margin rows."""
+    got = simhash_codes(x, theta, k_bits, n_tables)          # the kernel
+    want = simhash_codes_ref(x, theta, k_bits, n_tables)
+    torch.cuda.synchronize()
+    rows = margin_rows(x, theta, MARGIN_EPS)
+    assert_ints_equal(got, want, rows=rows, what="simhash_codes")
+    diff = (got.long() - want.long()).abs().cpu().numpy()[rows]
+    return rows, int(diff.max(initial=0))
+
+
+def compare_lss_topk(q_aug, theta, table_ids, w_bucketed, w_scale, top_k):
+    """Kernel vs plain of the same storage, per the parity contract.
+    Returns the margin rows, the checks' numbers and the kernel's output."""
+    got = lss_topk(q_aug, theta, table_ids, w_bucketed, top_k=top_k,
+                   w_scale=w_scale)                          # the kernel
+    ext = lss_topk_ref(q_aug, theta, table_ids, w_bucketed, top_k=top_k + 1,
+                       w_scale=w_scale)
+    torch.cuda.synchronize()
+    rows = margin_rows(q_aug, theta, MARGIN_EPS)
+    assert_ints_equal(got[3], ext[3], rows=rows, what="cand")
+    assert_ints_equal(got[2], ext[2], rows=rows, what="sample")
+    want = ext[0][:, :top_k]
+    real = want[want > NEG_INF / 2]
+    scale = min(1.0, float(real.abs().max())) if real.numel() else 1.0
+    atol, tie = LOGIT_ATOL * scale, TIE_TOL * scale
+    err = assert_close(got[0], want, rtol=LOGIT_RTOL, atol=atol, rows=rows,
+                       what="top_logits")
+    n_ids = assert_topk_ids_equal(got[1], ext[1][:, :top_k], want, tie,
+                                  rows=rows, next_logit=ext[0][:, top_k],
+                                  what="top_ids")
+    return rows, {"max_abs_err": err, "atol": atol, "tie_tol": tie,
+                  "ids_checked": n_ids, "ids": int(got[1].numel())}, got
+
+
+# ------------------------------------------------------------- bounds --
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def simhash_bound_ms(bsz, d, k_bits, n_tables):
+    kl = k_bits * n_tables
+    return bound(4 * (bsz * d + d * kl + bsz * n_tables), 2 * bsz * d * kl)
+
+
+def lss_topk_bound_ms(q_aug, index, cand, top_k):
+    """Bytes this batch's data needs: each distinct hit slab once (its P
+    ids, and the rows of its occupied slots, + a fp32 scale each for
+    int8), the queries, theta and the outputs; flops: 2*d per occupied
+    slot per query, fp32."""
+    t = index.tables
+    bsz, d = q_aug.shape
+    row = d * index.w_bucketed.element_size() + (
+        4 if index.w_scale is not None else 0)
+    buckets = simhash_codes_ref(unit(q_aug), index.theta, t.k_bits,
+                                t.n_tables)
+    slab_ids = buckets.long() + torch.arange(
+        t.n_tables, device=buckets.device) * t.n_buckets
+    uniq, first = np.unique(slab_ids.cpu().numpy().reshape(-1),
+                            return_index=True)
+    # occupied slots of each distinct slab, read off the first query that
+    # hit it
+    occ = (cand.reshape(bsz, t.n_tables, t.capacity) >= 0).sum(-1)
+    occ_uniq = int(occ.reshape(-1).cpu().numpy()[first].sum())
+    nbytes = (len(uniq) * t.capacity * 4 + occ_uniq * row + 4 * bsz * d
+              + 4 * index.theta.numel() + 4 * cand.numel() + 8 * bsz * top_k
+              + 4 * bsz)
+    return bound(nbytes, 2 * d * int((cand >= 0).sum()))
+
+
+# ------------------------------------------------------------- phases --
+
+def phase_device():
+    dev = resolve_device(None)
+    smi = nvidia_smi()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
+    return dev, smi
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    per = _build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_kernel_seconds": per, "flags": " ".join(_build.NVCC_FLAGS)})
+
+
+def phase_launch_floor(dev):
+    """What ``time_ms`` reads for one launch that does next to nothing (a
+    one-element add): no kernel timed this way can take less."""
+    tiny = torch.zeros(1, device=dev)
+    emit({"phase": "launch_floor", "ms": time_ms(lambda: tiny.add_(1))})
+
+
+def phase_simhash(dev, gen, q_main):
+    d = q_main.shape[1]
+    n_rows = n_excl = 0
+    cases = [("random", 1024, 9, 1), ("random", 1024, 8, 4),
+             ("main_path", q_main.shape[0], 9, 1)]
+    for src, bsz, k_bits, n_tables in cases:
+        theta = init_hyperplanes(gen, d, k_bits, n_tables, device=dev)
+        x = unit(torch.randn(bsz, d, generator=gen, device=dev)
+                 if src == "random" else q_main)
+        launches = simhash_codes_cuda.launches
+        rows, err = compare_simhash(x, theta, k_bits, n_tables)
+        ms = time_ms(lambda: simhash_codes(x, theta, k_bits, n_tables))
+        plain = time_ms(lambda: simhash_codes_ref(x, theta, k_bits, n_tables))
+        b_ms, b_by, nbytes, flops = simhash_bound_ms(bsz, d, k_bits, n_tables)
+        emit({"phase": "simhash_codes", "inputs": src, "B": bsz, "d": d,
+              "K": k_bits, "L": n_tables, "excluded_rows": int((~rows).sum()),
+              "max_abs_err": err, "ms": ms, "plain_ms": plain,
+              "launches": simhash_codes_cuda.launches - launches,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+              "flops": flops})
+        n_rows += bsz
+        n_excl += int((~rows).sum())
+    require(n_excl < MAX_EXCLUDED_FRAC * n_rows,
+            f"simhash_codes: {n_excl} of {n_rows} rows lack the margin")
+
+
+def phase_lss_topk(dev, gen, w_aug, setting):
+    d = w_aug.shape[1]
+    cases = [(setting.lss.k_bits, setting.lss.n_tables, s, b)
+             for s in ("fp32", "bf16", "int8") for b in (1, 256)]
+    cases.append((8, 4, "fp32", 256))
+    # standard-normal queries: logits of order 1, so the 1e-4 tolerances
+    # of the contract bite (the random model's embeddings give ~1e-4)
+    q_aug = augment_queries(torch.randn(256, d - 1, generator=gen,
+                                        device=dev))
+    indexes, n_rows, n_excl = {}, 0, 0
+    for k_bits, n_tables, sdt, bsz in cases:
+        key = (k_bits, n_tables, sdt)
+        if key not in indexes:
+            theta = init_hyperplanes(gen, d, k_bits, n_tables, device=dev)
+            indexes[key] = build_index(w_aug, theta, LSSConfig(
+                k_bits=k_bits, n_tables=n_tables, slab_dtype=sdt))
+        idx = indexes[key]
+        t = idx.tables
+        smem = lss_topk_ops.lss_topk_smem_bytes(d, t.k_bits, t.n_tables,
+                                                t.capacity)
+        require(smem == lss_topk_ops._library().lss_topk_smem_bytes(
+            d, t.k_bits, t.n_tables, t.capacity), "smem formula drifted")
+        q = q_aug[:bsz].contiguous()
+        args = (q, idx.theta, t.table_ids, idx.w_bucketed)
+        launches = lss_topk_ops.lss_topk_cuda.launches
+        rows, check, got = compare_lss_topk(*args, idx.w_scale, TOP_K)
+        ms = time_ms(lambda: lss_topk(*args, top_k=TOP_K,
+                                      w_scale=idx.w_scale))
+        plain = time_ms(lambda: lss_topk_ref(*args, top_k=TOP_K,
+                                             w_scale=idx.w_scale), iters=5)
+        b_ms, b_by, nbytes, flops = lss_topk_bound_ms(q, idx, got[3], TOP_K)
+        emit({"phase": "lss_topk", "slab_dtype": sdt, "B": bsz, "d": d,
+              "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+              "C": t.n_tables * t.capacity, "smem_bytes": smem,
+              "excluded_rows": int((~rows).sum()), **check,
+              "mean_sample": float(got[2].float().mean()), "ms": ms,
+              "plain_ms": plain,
+              "launches": lss_topk_ops.lss_topk_cuda.launches - launches,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+              "flops": flops})
+        n_rows += bsz
+        n_excl += int((~rows).sum())
+    require(n_excl < MAX_EXCLUDED_FRAC * n_rows,
+            f"lss_topk: {n_excl} of {n_rows} rows lack the margin")
+
+
+def phase_main_path(dev, model, index, data, counters):
+    """Serve N_REQUESTS in batches through lss_predict and the full head;
+    the kernels' launch counts are set to 0 just before and read after."""
+    w, b = model.w_out, model.b_out
+    m = w.shape[0]
+
+    def full_head(q):
+        return topk_lowest_index(q @ w.T + b, TOP_K)
+
+    batches = [(torch.from_numpy(data.x[i:i + BATCH]).to(dev),
+                torch.from_numpy(data.labels[i:i + BATCH]).to(dev))
+               for i in range(0, N_REQUESTS, BATCH)]
+    q0 = model.embed(batches[0][0])
+    lss_predict(q0, index, None, TOP_K)                     # warm-up
+    full_head(q0)
+    torch.cuda.synchronize()
+    registry.reset_dispatch_log()
+    for fn in counters:
+        fn.launches = 0
+    lss_ids, full_ids, cands, labels, t_lss, t_full = [], [], [], [], 0., 0.
+    for x, lab in batches:
+        q = model.embed(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        top_logits, top_ids = lss_predict(q, index, None, TOP_K)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        f_logits, f_ids = full_head(q)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        t_lss += t1 - t0
+        t_full += t2 - t1
+        cand, _ = retrieve(augment_queries(q), index)
+        # outputs are right: shapes, ids in range, finite, and each LSS
+        # logit is the full head's logit of the same id (the bias is 0)
+        require(top_ids.shape == (x.shape[0], TOP_K)
+                and top_ids.dtype == torch.int32, "lss_predict shape")
+        require(bool(((top_ids >= -1) & (top_ids < m)).all()), "id range")
+        valid = top_ids >= 0
+        require(bool(torch.isfinite(top_logits[valid]).all())
+                and bool(torch.isfinite(f_logits).all()), "finite logits")
+        exact = (q[:, None, :] * w[top_ids.clamp(min=0).long()]).sum(-1)
+        assert_close(top_logits[valid], exact[valid], rtol=HEAD_RTOL,
+                     atol=HEAD_ATOL, what="lss vs full-head logits")
+        lss_ids.append(top_ids)
+        full_ids.append(f_ids)
+        cands.append(cand)
+        labels.append(lab)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    counts = {f"{k[0]}:{k[1]}": v
+              for k, v in registry.dispatch_counts().items()}
+    lss_ids, full_ids = torch.cat(lss_ids), torch.cat(full_ids)
+    cands, labels = torch.cat(cands), torch.cat(labels)
+    # retrieve (simhash_codes) and the fused pass (lss_topk) hash alike
+    fwd = lss_forward(q0, index, None, TOP_K)
+    rows = margin_rows(augment_queries(q0), index.theta, MARGIN_EPS)
+    assert_ints_equal(fwd.cand_ids, cands[:BATCH], rows=rows,
+                      what="retrieve vs lss_forward candidates")
+    n_batches = len(batches)
+    res = {
+        "phase": "main_path", "model": DELICIOUS.name,
+        "requests": N_REQUESTS, "batch": BATCH, "top_k": TOP_K,
+        "lss": {"P@1": float(precision_at_k(lss_ids, labels, 1)),
+                "P@5": float(precision_at_k(lss_ids, labels, 5)),
+                "ms_per_batch": t_lss / n_batches * 1e3,
+                "label_recall": float(label_recall(cands, labels)),
+                "avg_sample_size": float(avg_sample_size(cands))},
+        "full": {"P@1": float(precision_at_k(full_ids, labels, 1)),
+                 "P@5": float(precision_at_k(full_ids, labels, 5)),
+                 "ms_per_batch": t_full / n_batches * 1e3},
+        "top1_agreement": float((lss_ids[:, 0] == full_ids[:, 0])
+                                .float().mean()),
+        "launches": launches, "dispatch_counts": counts,
+    }
+    emit(res)
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the main path")
+    return launches, q0
+
+
+def kernel_line(index, q0, launches):
+    """The two kernels at the main path's shapes (its first batch)."""
+    t = index.tables
+    q_aug = augment_queries(q0)
+    args = (q_aug, index.theta, t.table_ids, index.w_bucketed)
+    _, check, got = compare_lss_topk(*args, None, TOP_K)
+    emit({"phase": "main_path_kernel_check", **check})
+    ms = time_ms(lambda: lss_topk(*args, top_k=TOP_K))
+    plain = time_ms(lambda: lss_topk_ref(*args, top_k=TOP_K), iters=5)
+    b_ms, b_by, _, _ = lss_topk_bound_ms(q_aug, index, got[3], TOP_K)
+    code_args = (unit(q_aug), index.theta, t.k_bits, t.n_tables)
+    _, s_err = compare_simhash(*code_args)
+    s_ms = time_ms(lambda: simhash_codes(*code_args))
+    s_plain = time_ms(lambda: simhash_codes_ref(*code_args))
+    s_b, s_by, _, _ = simhash_bound_ms(*q_aug.shape, t.k_bits, t.n_tables)
+    return {"kernels": [
+        {"name": "simhash_codes", "route": "cuda",
+         "source": "src/repro_torch/csrc/simhash_codes.cu",
+         "replaces": "src/repro/kernels/simhash_codes/kernel.py:55",
+         "launches": launches["simhash_codes_cuda"], "max_abs_err": s_err,
+         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_b, "bound_by": s_by,
+         "library_ms": None},
+        {"name": "lss_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/lss_topk.cu",
+         "replaces": "src/repro/kernels/lss_topk/kernel.py:301",
+         "launches": launches["lss_topk_cuda"],
+         "max_abs_err": check["max_abs_err"],
+         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": None},
+    ]}
+
+
+@torch.no_grad()
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    dev, smi = phase_device()
+    phase_build()
+    phase_launch_floor(dev)
+
+    cfg = DELICIOUS.full
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = XCModel(cfg, generator=gen, device=dev)
+    w_aug = augment_neurons(model.w_out, model.b_out)
+    theta = init_hyperplanes(gen, cfg.hidden + 1, DELICIOUS.lss.k_bits,
+                             DELICIOUS.lss.n_tables, device=dev)
+    index = build_index(w_aug, theta, DELICIOUS.lss)
+    data = xc_dataset(SEED, N_REQUESTS, cfg.input_dim, cfg.output_dim,
+                      max_in=cfg.max_in, max_labels=cfg.max_labels)
+    torch.cuda.synchronize()
+    t = index.tables
+    emit({"phase": "setup", "model": cfg.name, "input_dim": cfg.input_dim,
+          "hidden": cfg.hidden, "output_dim": cfg.output_dim,
+          "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+          "C": t.n_tables * t.capacity, "n_dropped": int(t.n_dropped.sum()),
+          "device_memory_mb": torch.cuda.memory_allocated() / 2 ** 20,
+          "seconds": time.perf_counter() - t0})
+
+    q_main = model.embed(torch.from_numpy(data.x[:BATCH]).to(dev))
+    phase_simhash(dev, gen, augment_queries(q_main))
+    phase_lss_topk(dev, gen, w_aug, DELICIOUS)
+    launches, q0 = phase_main_path(
+        dev, model, index, data,
+        (simhash_codes_cuda, lss_topk_ops.lss_topk_cuda))
+    line = kernel_line(index, q0, launches)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit(line)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

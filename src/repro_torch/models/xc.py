@@ -1,0 +1,94 @@
+"""The paper's extreme-classification model (counterpart of
+``repro.models.xc``): Embedding(bag, mean) -> ReLU -> WOL.
+
+Input is sparse BoW, multi-hot token ids padded with -1.  ``embed`` — the
+layer below the WOL, i.e. the LSS query — is separate from
+``logits``/``loss``, so the LSS index plugs in without touching the model.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.topk import topk_lowest_index
+from repro_torch.device import resolve_device
+
+__all__ = ["XCConfig", "XCModel"]
+
+
+class XCConfig(NamedTuple):
+    name: str
+    input_dim: int        # BoW vocabulary
+    hidden: int           # 128 in the paper
+    output_dim: int       # WOL width (number of labels)
+    max_in: int = 64      # max active input features per sample
+    max_labels: int = 8   # max labels per sample (padded -1)
+    dtype: torch.dtype = torch.float32
+
+    def param_count(self) -> int:
+        return self.input_dim * self.hidden + \
+            self.output_dim * (self.hidden + 1)
+
+
+class XCModel(nn.Module):
+    """Parameters ``embed [input_dim, H]``, ``w_out [output_dim, H]``,
+    ``b_out [output_dim]``, initialised as in the JAX package: N(0, 1)
+    scaled by ``input_dim**-0.5`` and ``hidden**-0.5``, bias 0.
+
+    The normals are drawn on ``generator``'s device (a CUDA generator
+    fills the 400 MB Delicious-200K table on the card) and the parameters
+    live on ``device`` (the GPU unless the caller asks for the CPU).
+    """
+
+    def __init__(self, cfg: XCConfig, generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        self.cfg = cfg
+
+        def normal(shape, scale):
+            x = torch.randn(shape, generator=generator,
+                            device=generator.device) * scale
+            return nn.Parameter(x.to(device=dev, dtype=cfg.dtype))
+
+        self.embed_table = normal((cfg.input_dim, cfg.hidden),
+                                  cfg.input_dim ** -0.5)
+        self.w_out = normal((cfg.output_dim, cfg.hidden), cfg.hidden ** -0.5)
+        self.b_out = nn.Parameter(torch.zeros(cfg.output_dim, dtype=cfg.dtype,
+                                              device=dev))
+
+    def embed(self, x_ids: torch.Tensor) -> torch.Tensor:
+        """EmbeddingBag(mean) + ReLU over int ``[B, max_in]`` ids, -1 pad:
+        the LSS query embedding."""
+        mask = (x_ids >= 0)[..., None]
+        rows = self.embed_table[x_ids.clamp(min=0).long()]    # [B, F, H]
+        denom = mask.sum(1).clamp(min=1).to(rows.dtype)
+        bag = torch.where(mask, rows, torch.zeros_like(rows)).sum(1) / denom
+        return torch.relu(bag)
+
+    def logits(self, x_ids: torch.Tensor) -> torch.Tensor:
+        h = self.embed(x_ids)
+        return (h @ self.w_out.T + self.b_out).float()
+
+    def forward(self, x_ids: torch.Tensor) -> torch.Tensor:
+        return self.logits(x_ids)
+
+    def loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Multi-label softmax CE (uniform over the true labels).
+        ``batch``: ``x [B, max_in]``, ``labels [B, max_labels]``, -1 pad."""
+        lg = self.logits(batch["x"])
+        labels = batch["labels"]
+        mask = labels >= 0
+        logz = torch.logsumexp(lg, dim=-1, keepdim=True)
+        gold = lg.gather(-1, labels.clamp(min=0).long())
+        nll = -(gold - logz) * mask
+        return (nll.sum(-1) / mask.sum(-1).clamp(min=1)).mean()
+
+    def predict_topk(self, x_ids: torch.Tensor, k: int = 5) -> torch.Tensor:
+        """Top-k label ids of the exact full head, ties to the lower id."""
+        return topk_lowest_index(self.logits(x_ids), k)[1]

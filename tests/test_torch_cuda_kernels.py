@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need a CUDA device and ``nvcc`` (the kernels build at first use) and
+skip without one.  They import no JAX, so they run where only PyTorch is
+installed::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.simhash import augment_queries, unit  # noqa: E402
+from repro_torch.kernels.lss_topk import lss_topk  # noqa: E402
+from repro_torch.kernels.lss_topk.ops import lss_topk_cuda  # noqa: E402
+from repro_torch.kernels.lss_topk.ref import lss_topk_ref  # noqa: E402
+from repro_torch.kernels.lss_topk.slabs import quantize_slabs  # noqa: E402
+from repro_torch.kernels.simhash_codes import simhash_codes  # noqa: E402
+from repro_torch.kernels.simhash_codes.ops import simhash_codes_cuda  # noqa: E402
+from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref  # noqa: E402
+from repro_torch.testing.parity import (assert_close,  # noqa: E402
+                                        assert_ints_equal,
+                                        assert_topk_ids_equal, margin_rows)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("bsz,d,k_bits,n_tables",
+                         [(37, 17, 4, 3), (1024, 129, 9, 1), (5, 129, 8, 4)])
+def test_simhash_codes_kernel_matches_plain(cuda, bsz, d, k_bits, n_tables):
+    g = torch.Generator(cuda).manual_seed(bsz)
+    x = unit(torch.randn(bsz, d, generator=g, device=cuda))
+    theta = torch.randn(d, k_bits * n_tables, generator=g, device=cuda)
+    before = simhash_codes_cuda.launches
+    got = simhash_codes(x, theta, k_bits, n_tables)
+    assert simhash_codes_cuda.launches == before + 1
+    want = simhash_codes_ref(x, theta, k_bits, n_tables)
+    torch.cuda.synchronize()
+    assert_ints_equal(got, want, rows=margin_rows(x, theta), what="codes")
+
+
+def _case(cuda, seed, bsz, d, k_bits, n_tables, cap, m):
+    rng = np.random.default_rng(seed)
+    q = augment_queries(torch.from_numpy(
+        rng.normal(size=(bsz, d - 1)).astype(np.float32))).to(cuda)
+    theta = torch.from_numpy(
+        rng.normal(size=(d, k_bits * n_tables)).astype(np.float32)).to(cuda)
+    nb = 2 ** k_bits
+    tids = rng.integers(0, m, size=(n_tables, nb, cap)).astype(np.int32)
+    tids[rng.random(tids.shape) < 0.25] = -1
+    tids[:, 0] = -1                                   # empty buckets
+    wb = rng.normal(size=(n_tables, nb, cap, d)).astype(np.float32)
+    wb[tids < 0] = 0.0
+    return q, theta, torch.from_numpy(tids).to(cuda), \
+        torch.from_numpy(wb).to(cuda)
+
+
+@pytest.mark.parametrize("slab_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", [(16, 17, 3, 2, 32, 50),       # C = 64
+                                   (9, 33, 2, 3, 88, 150),       # C = 264
+                                   (3, 129, 8, 4, 1608, 9000)])  # C = 6432
+def test_lss_topk_kernel_matches_plain(cuda, slab_dtype, shape):
+    q, theta, tids, wb = _case(cuda, 0, *shape)
+    w, scale = quantize_slabs(wb, slab_dtype)
+    c = tids.shape[0] * tids.shape[2]
+    for top_k in sorted({5, c if c <= 264 else 5}):
+        before = lss_topk_cuda.launches
+        got = lss_topk(q, theta, tids, w, top_k=top_k, w_scale=scale)
+        assert lss_topk_cuda.launches == before + 1
+        want = lss_topk_ref(q, theta, tids, w, top_k=top_k, w_scale=scale)
+        torch.cuda.synchronize()
+        rows = margin_rows(q, theta)
+        assert_ints_equal(got[3], want[3], rows=rows, what="cand")
+        assert_ints_equal(got[2], want[2], rows=rows, what="sample")
+        assert_close(got[0], want[0], rtol=1e-4, atol=1e-4, rows=rows,
+                     what="top_logits")
+        assert_topk_ids_equal(got[1], want[1], want[0], 1e-4, rows=rows,
+                              what="top_ids")

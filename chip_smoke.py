@@ -2,11 +2,23 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Builds the CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, then serves
-Delicious-200K requests (full width, random weights from a seed) through
-the port's main path: the XC model's query embedding, ``lss_predict``
-(the fused ``lss_topk`` kernel), ``retrieve`` (the ``simhash_codes``
-kernel) for label recall, and the exact full head for comparison.
+kernel against its plain PyTorch version on the card, then drives the
+port's paths at Delicious-200K's full width (random weights from a seed):
+
+* ``main_path``: serves requests through the XC model's query embedding,
+  ``lss_predict`` (the fused ``lss_topk`` kernel), ``retrieve`` (the
+  ``simhash_codes`` kernel) for label recall, and the exact full head;
+* ``iul``: Algorithm 1, ``fit_lss`` on the full WOL, mining through
+  ``retrieve`` (``simhash_codes``), with one loss and gradient held
+  against the same call on CPU copies;
+* ``unfused_path``: the learned index, with fp32 and with bf16 slabs,
+  served through ``retrieve`` and ``sparse_logits_bucketed`` (the
+  ``bucket_logits`` kernel), held against the gather path and the fused
+  ``lss_forward``.
+
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after; a kernel of the path that was not launched fails
+the run.
 
 Every phase prints one JSON line; a failed check or an exception exits
 non-zero.  The line before the last is the card's name and power limit
@@ -32,14 +44,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch import resolve_device
     from repro_torch.configs.paper_datasets import DELICIOUS
-    from repro_torch.core.lss import (LSSConfig, avg_sample_size, build_index,
+    from repro_torch.core.iul import (MinedPairs, fit_lss, iul_init,
+                                      iul_loss_and_grad, mine_pairs)
+    from repro_torch.core.lss import (LSSConfig, avg_sample_size,
+                                      bucket_slab_inputs, build_index,
                                       label_recall, lss_forward, lss_predict,
-                                      precision_at_k, retrieve)
+                                      precision_at_k, retrieve,
+                                      sparse_logits_bucketed,
+                                      sparse_logits_gather)
     from repro_torch.core.simhash import (augment_neurons, augment_queries,
                                           init_hyperplanes, unit)
+    from repro_torch.core.tables import build_tables, bucketize_weights
     from repro_torch.core.topk import NEG_INF, topk_lowest_index
     from repro_torch.data.synthetic import xc_dataset
     from repro_torch.kernels import _build, registry
+    from repro_torch.kernels.bucket_logits import bucket_logits
+    from repro_torch.kernels.bucket_logits.ops import bucket_logits_cuda
+    from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref
     from repro_torch.kernels.lss_topk import lss_topk
     from repro_torch.kernels.lss_topk import ops as lss_topk_ops
     from repro_torch.kernels.lss_topk.ref import lss_topk_ref
@@ -65,6 +86,9 @@ TIE_TOL = 1e-4             # top ids exact where neighbours differ by more
 # main path: LSS top logits against the full head's logits of the same ids
 # (both fp32 dots of the same vectors; the random model's logits are ~1e-4)
 HEAD_RTOL, HEAD_ATOL = 1e-4, 1e-8
+# iul: one loss and its theta gradient on the card against the same call
+# on CPU copies (the sums run in other orders on the two devices)
+IUL_RTOL = IUL_ATOL = 1e-5
 
 # ---- the card's published peaks (H100 SXM data sheet) for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
@@ -137,6 +161,13 @@ def compare_simhash(x, theta, k_bits, n_tables):
     return rows, int(diff.max(initial=0))
 
 
+def logit_scale(want) -> float:
+    """min(1, the largest |logit| of ``want``): the factor for LOGIT_ATOL
+    and TIE_TOL (masked NEG_INF slots aside)."""
+    real = want[want > NEG_INF / 2]
+    return min(1.0, float(real.abs().max())) if real.numel() else 1.0
+
+
 def compare_lss_topk(q_aug, theta, table_ids, w_bucketed, w_scale, top_k):
     """Kernel vs plain of the same storage, per the parity contract.
     Returns the margin rows, the checks' numbers and the kernel's output."""
@@ -149,8 +180,7 @@ def compare_lss_topk(q_aug, theta, table_ids, w_bucketed, w_scale, top_k):
     assert_ints_equal(got[3], ext[3], rows=rows, what="cand")
     assert_ints_equal(got[2], ext[2], rows=rows, what="sample")
     want = ext[0][:, :top_k]
-    real = want[want > NEG_INF / 2]
-    scale = min(1.0, float(real.abs().max())) if real.numel() else 1.0
+    scale = logit_scale(want)
     atol, tie = LOGIT_ATOL * scale, TIE_TOL * scale
     err = assert_close(got[0], want, rtol=LOGIT_RTOL, atol=atol, rows=rows,
                        what="top_logits")
@@ -159,6 +189,17 @@ def compare_lss_topk(q_aug, theta, table_ids, w_bucketed, w_scale, top_k):
                                   what="top_ids")
     return rows, {"max_abs_err": err, "atol": atol, "tie_tol": tie,
                   "ids_checked": n_ids, "ids": int(got[1].numel())}, got
+
+
+def compare_bucket_logits(q, w_flat, slab_ids):
+    """Kernel vs plain on the same inputs: allclose, per the contract."""
+    got = bucket_logits(q, w_flat, slab_ids)                # the kernel
+    want = bucket_logits_ref(q, w_flat, slab_ids)
+    torch.cuda.synchronize()
+    atol = LOGIT_ATOL * logit_scale(want)
+    err = assert_close(got, want, rtol=LOGIT_RTOL, atol=atol,
+                       what="bucket_logits")
+    return {"max_abs_err": err, "atol": atol}
 
 
 # ------------------------------------------------------------- bounds --
@@ -198,6 +239,29 @@ def lss_topk_bound_ms(q_aug, index, cand, top_k):
               + 4 * index.theta.numel() + 4 * cand.numel() + 8 * bsz * top_k
               + 4 * bsz)
     return bound(nbytes, 2 * d * int((cand >= 0).sum()))
+
+
+def bucket_logits_bound_ms(q, w_flat, slab_ids):
+    """Bytes: each distinct hit slab once (every slot row: the op takes no
+    ids), the queries, the slab ids and the logits; flops 2*B*L*P*d."""
+    bsz, d = q.shape
+    cap = w_flat.shape[1]
+    n_tables = slab_ids.shape[1]
+    n_distinct = int(torch.unique(slab_ids).numel())
+    nbytes = (n_distinct * cap * d * w_flat.element_size()
+              + bsz * d * q.element_size() + 4 * bsz * n_tables
+              + 4 * bsz * n_tables * cap)
+    return bound(nbytes, 2 * bsz * n_tables * cap * d) + (n_distinct,)
+
+
+def slab_inputs(q_aug, index):
+    """What ``sparse_logits_bucketed`` hands ``bucket_logits`` for
+    ``q_aug`` (``bucket_slab_inputs``), with the buckets hashed by the
+    plain version, so no kernel count moves."""
+    t = index.tables
+    buckets = simhash_codes_ref(unit(q_aug), index.theta, t.k_bits,
+                                t.n_tables)
+    return bucket_slab_inputs(index, buckets)
 
 
 # ------------------------------------------------------------- phases --
@@ -302,6 +366,40 @@ def phase_lss_topk(dev, gen, w_aug, setting):
             f"lss_topk: {n_excl} of {n_rows} rows lack the margin")
 
 
+def phase_bucket_logits(dev, gen, w_aug, setting):
+    """The kernel against its plain version at the main path's shape (K, L
+    of the setting: one slab of P rows per query) in fp32 and bf16, B = 1
+    and 256, and at the multi-table shape K = 8, L = 4."""
+    d = w_aug.shape[1]
+    cases = [(setting.lss.k_bits, setting.lss.n_tables, sdt, b)
+             for sdt in ("fp32", "bf16") for b in (1, 256)]
+    cases.append((8, 4, "fp32", 256))
+    # standard-normal queries: logits of order 1, so the tolerances bite
+    q_aug = augment_queries(torch.randn(256, d - 1, generator=gen,
+                                        device=dev))
+    for k_bits, n_tables, sdt, bsz in cases:
+        theta = init_hyperplanes(gen, d, k_bits, n_tables, device=dev)
+        idx = build_index(w_aug, theta, LSSConfig(
+            k_bits=k_bits, n_tables=n_tables, slab_dtype=sdt))
+        q = q_aug[:bsz].to(idx.w_bucketed.dtype).contiguous()
+        w_flat, slab_ids = slab_inputs(q_aug[:bsz], idx)
+        launches = bucket_logits_cuda.launches
+        check = compare_bucket_logits(q, w_flat, slab_ids)
+        ms = time_ms(lambda: bucket_logits(q, w_flat, slab_ids))
+        plain = time_ms(lambda: bucket_logits_ref(q, w_flat, slab_ids),
+                        iters=5)
+        b_ms, b_by, nbytes, flops, n_distinct = bucket_logits_bound_ms(
+            q, w_flat, slab_ids)
+        t = idx.tables
+        emit({"phase": "bucket_logits", "dtype": sdt, "B": bsz, "d": d,
+              "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+              "distinct_slabs": n_distinct, **check, "ms": ms,
+              "plain_ms": plain,
+              "launches": bucket_logits_cuda.launches - launches,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+              "flops": flops})
+
+
 def phase_main_path(dev, model, index, data, counters):
     """Serve N_REQUESTS in batches through lss_predict and the full head;
     the kernels' launch counts are set to 0 just before and read after."""
@@ -382,6 +480,176 @@ def phase_main_path(dev, model, index, data, counters):
     return launches, q0
 
 
+def phase_iul(dev, model, setting, counters):
+    """Algorithm 1 at full width: ``fit_lss`` with ``setting.lss`` on the
+    model's WOL, on the embeddings of a separate draw of requests (seed
+    SEED + 1) and their labels.  First, on the first BATCH of those
+    queries mined against the starting index (the θ fit_lss starts from),
+    one loss and its θ gradient on the card against CPU copies."""
+    cfg, lss = setting.full, setting.lss
+    data = xc_dataset(SEED + 1, N_REQUESTS, cfg.input_dim, cfg.output_dim,
+                      max_in=cfg.max_in, max_labels=cfg.max_labels)
+    q = torch.cat([model.embed(torch.from_numpy(data.x[i:i + BATCH]).to(dev))
+                   for i in range(0, N_REQUESTS, BATCH)])
+    labels = torch.from_numpy(data.labels).to(dev)
+    w_aug = augment_neurons(model.w_out, model.b_out)
+    q_aug = augment_queries(q)
+
+    state = iul_init(torch.Generator(dev).manual_seed(SEED + 2), q_aug,
+                     labels, w_aug, lss)
+    index0 = build_index(w_aug, state.theta, lss)
+    pairs = mine_pairs(q_aug[:BATCH], labels[:BATCH], w_aug, index0,
+                       state.t1, state.t2)
+    loss, grad = iul_loss_and_grad(state.theta, q_aug[:BATCH], w_aug, pairs)
+    c_loss, c_grad = iul_loss_and_grad(
+        state.theta.cpu(), q_aug[:BATCH].cpu(), w_aug.cpu(),
+        MinedPairs(*(p.cpu() for p in pairs)))
+    loss_err = assert_close(loss, c_loss, rtol=IUL_RTOL, atol=IUL_ATOL,
+                            what="iul_loss card vs cpu")
+    grad_err = assert_close(grad, c_grad, rtol=IUL_RTOL, atol=IUL_ATOL,
+                            what="iul grad card vs cpu")
+    start_recall = float(label_recall(retrieve(q_aug[:1024], index0)[0],
+                                      labels[:1024]))
+    emit({"phase": "iul_grad_check", "queries": BATCH,
+          "pos_pairs": int(pairs.pos_mask.sum()),
+          "neg_pairs": int(pairs.neg_mask.sum()), "t1": float(state.t1),
+          "t2": float(state.t2), "loss": float(loss),
+          "loss_abs_err": loss_err, "grad_max_abs_err": grad_err,
+          "grad_max_abs": float(grad.abs().max()),
+          "start_recall": start_recall})
+
+    torch.cuda.synchronize()
+    registry.reset_dispatch_log()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    index, hist = fit_lss(torch.Generator(dev).manual_seed(SEED + 2), q,
+                          labels, model.w_out, model.b_out, lss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    counts = {f"{k[0]}:{k[1]}": v
+              for k, v in registry.dispatch_counts().items()}
+    for ep in range(len(hist["loss"])):
+        emit({"phase": "iul_epoch", "epoch": ep,
+              **{k: v[ep] for k, v in hist.items()}})
+    require(len(hist["loss"]) == lss.iul_epochs, "iul: history length")
+    require(all(np.isfinite(hist["loss"])), "iul: a loss is not finite")
+    t = index.tables
+    own = build_tables(w_aug, index.theta, t.k_bits, t.n_tables, t.capacity)
+    require(torch.equal(own.table_ids, t.table_ids)
+            and torch.equal(own.n_dropped, t.n_dropped),
+            "iul: the fitted tables are not those of its theta")
+    require(torch.equal(bucketize_weights(w_aug, own), index.w_bucketed),
+            "iul: the fitted slabs are not those of its tables")
+    emit({"phase": "iul", "model": setting.name, "queries": N_REQUESTS,
+          "m": w_aug.shape[0], "d": w_aug.shape[1], "K": t.k_bits,
+          "L": t.n_tables, "P": t.capacity, "epochs": lss.iul_epochs,
+          "batch": lss.iul_batch, "inner_steps": lss.iul_inner_steps,
+          "lr": lss.iul_lr, "seconds": seconds,
+          "best_recall": max(hist["recall"]),
+          "launches": launches, "dispatch_counts": counts})
+    require(launches["simhash_codes_cuda"] > 0,
+            "simhash_codes was not launched on the iul path")
+    return index
+
+
+def phase_unfused_path(dev, model, index, data, counters):
+    """Serve N_REQUESTS on the learned index through retrieve ->
+    sparse_logits_bucketed (bucket_logits), against the gather path on the
+    same candidates, then through lss_forward; and through a bf16 copy of
+    the index's slabs, against the gather path on the same bf16 rows.  The
+    kernels' launch counts are set to 0 just before and read after."""
+    w_aug = augment_neurons(model.w_out, model.b_out)
+    w_aug16 = w_aug.bfloat16()
+    index16 = index._replace(w_bucketed=index.w_bucketed.bfloat16())
+    batches = [torch.from_numpy(data.x[i:i + BATCH]).to(dev)
+               for i in range(0, N_REQUESTS, BATCH)]
+    torch.cuda.synchronize()
+    registry.reset_dispatch_log()
+    for fn in counters:
+        fn.launches = 0
+    t_unfused, t_bf16, errs, errs16 = 0., 0., [], []
+    top_errs, n_checked, n_excl = [], 0, 0
+    for x in batches:
+        q = model.embed(x)
+        q_aug = augment_queries(q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cand, buckets = retrieve(q_aug, index)
+        lb, ids = sparse_logits_bucketed(q_aug, index, buckets)
+        torch.cuda.synchronize()
+        t_unfused += time.perf_counter() - t0
+        lg = sparse_logits_gather(q_aug, w_aug, cand)
+        assert_ints_equal(ids, cand, what="unfused ids vs retrieve")
+        valid = cand >= 0
+        require(bool(torch.isfinite(lb[valid]).all()), "finite logits")
+        atol = LOGIT_ATOL * logit_scale(lg)
+        errs.append(assert_close(lb[valid], lg[valid], rtol=LOGIT_RTOL,
+                                 atol=atol, what="bucketed vs gather"))
+        # the fused pass on the same index: each top logit is the unfused
+        # logit of the same id (rows where the hash margin holds)
+        fwd = lss_forward(q, index, None, TOP_K)
+        rows = torch.from_numpy(margin_rows(q_aug, index.theta, MARGIN_EPS)
+                                ).to(dev)
+        n_excl += int((~rows).sum())
+        hit = ids[:, None, :] == fwd.top_ids[:, :, None]    # [B, k, C]
+        top_ok = (fwd.top_ids >= 0) & rows[:, None]
+        require(bool(hit.any(-1)[top_ok].all()),
+                "a top id of lss_forward is not among the candidates")
+        unfused_top = lb.gather(-1, hit.int().argmax(-1))
+        top_errs.append(assert_close(
+            fwd.top_logits[top_ok], unfused_top[top_ok], rtol=LOGIT_RTOL,
+            atol=atol, what="lss_forward vs unfused logits"))
+        n_checked += int(top_ok.sum())
+        # bf16 slabs go to the kernel as stored; the gather path widens the
+        # same bf16 rows, so the two agree as in fp32
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, buckets16 = retrieve(q_aug, index16)
+        lb16, ids16 = sparse_logits_bucketed(q_aug, index16, buckets16)
+        torch.cuda.synchronize()
+        t_bf16 += time.perf_counter() - t0
+        assert_ints_equal(ids16, cand, what="bf16 unfused ids vs retrieve")
+        lg16 = sparse_logits_gather(q_aug, w_aug16, cand)
+        errs16.append(assert_close(lb16[valid], lg16[valid], rtol=LOGIT_RTOL,
+                                   atol=LOGIT_ATOL * logit_scale(lg16),
+                                   what="bf16 bucketed vs gather"))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    counts = {f"{k[0]}:{k[1]}": v
+              for k, v in registry.dispatch_counts().items()}
+    emit({"phase": "unfused_path", "requests": N_REQUESTS, "batch": BATCH,
+          "ms_per_batch": t_unfused / len(batches) * 1e3,
+          "bf16_ms_per_batch": t_bf16 / len(batches) * 1e3,
+          "max_abs_err_vs_gather": max(errs),
+          "bf16_max_abs_err_vs_gather": max(errs16),
+          "max_abs_err_fused_vs_unfused": max(top_errs),
+          "top_logits_checked": n_checked, "excluded_rows": n_excl,
+          "launches": launches, "dispatch_counts": counts})
+    require(n_excl < MAX_EXCLUDED_FRAC * N_REQUESTS,
+            f"unfused_path: {n_excl} of {N_REQUESTS} rows lack the margin")
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the unfused path")
+    return launches, augment_queries(model.embed(batches[0]))
+
+
+def bucket_logits_entry(index, q_aug0, launches):
+    """bucket_logits at the unfused path's shapes (its first batch)."""
+    w_flat, slab_ids = slab_inputs(q_aug0, index)
+    check = compare_bucket_logits(q_aug0, w_flat, slab_ids)
+    emit({"phase": "unfused_path_kernel_check", **check})
+    ms = time_ms(lambda: bucket_logits(q_aug0, w_flat, slab_ids))
+    plain = time_ms(lambda: bucket_logits_ref(q_aug0, w_flat, slab_ids),
+                    iters=5)
+    b_ms, b_by, _, _, _ = bucket_logits_bound_ms(q_aug0, w_flat, slab_ids)
+    return {"name": "bucket_logits", "route": "cuda",
+            "source": "src/repro_torch/csrc/bucket_logits.cu",
+            "replaces": "src/repro/kernels/bucket_logits/kernel.py:63",
+            "launches": launches["bucket_logits_cuda"],
+            "max_abs_err": check["max_abs_err"], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def kernel_line(index, q0, launches):
     """The two kernels at the main path's shapes (its first batch)."""
     t = index.tables
@@ -446,10 +714,17 @@ def main() -> int:
     q_main = model.embed(torch.from_numpy(data.x[:BATCH]).to(dev))
     phase_simhash(dev, gen, augment_queries(q_main))
     phase_lss_topk(dev, gen, w_aug, DELICIOUS)
+    phase_bucket_logits(dev, gen, w_aug, DELICIOUS)
     launches, q0 = phase_main_path(
         dev, model, index, data,
         (simhash_codes_cuda, lss_topk_ops.lss_topk_cuda))
     line = kernel_line(index, q0, launches)
+    counters = (simhash_codes_cuda, lss_topk_ops.lss_topk_cuda,
+                bucket_logits_cuda)
+    learned = phase_iul(dev, model, DELICIOUS, counters)
+    u_launches, q_aug0 = phase_unfused_path(dev, model, learned, data,
+                                            counters)
+    line["kernels"].append(bucket_logits_entry(learned, q_aug0, u_launches))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(line)
     print(smi, flush=True)

@@ -14,9 +14,10 @@ from repro_torch.core.lss import LSSIndex
 from repro_torch.core.tables import LSSTables
 from repro_torch.device import resolve_device
 from repro_torch.models.xc import XCConfig, XCModel
+from repro_torch.optim.adamw import AdamWState
 
 __all__ = ["tensor_from_numpy", "xc_params_from_numpy",
-           "lss_index_from_numpy"]
+           "lss_index_from_numpy", "adamw_state_from_numpy"]
 
 
 def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
@@ -62,3 +63,19 @@ def lss_index_from_numpy(theta, table_ids, n_dropped, w_bucketed, w_scale,
         tensor_from_numpy(theta, dev), tables,
         None if w_bucketed is None else tensor_from_numpy(w_bucketed, dev),
         None if w_scale is None else tensor_from_numpy(w_scale, dev))
+
+
+def adamw_state_from_numpy(step, mu, nu,
+                           device: str | torch.device | None = None
+                           ) -> AdamWState:
+    """An :class:`AdamWState` from the fields of a JAX ``AdamWState``
+    (``mu`` and ``nu`` an array or a nested dict of arrays), so that the
+    port can resume from JAX's Adam moments."""
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return tensor_from_numpy(tree, dev)
+    return AdamWState(tensor_from_numpy(step, dev).to(torch.int32),
+                      conv(mu), conv(nu))

@@ -10,13 +10,11 @@ Everything is static-shape: the candidate set is ``[B, L*P]`` with -1
 padding, and duplicates across tables are masked (not compacted) before
 ranking.  On a bucket-major index ``lss_forward`` is one ``lss_topk`` op
 (the fused CUDA kernel on the GPU); ``retrieve`` hashes through the
-``simhash_codes`` op.  ``impl=`` pins an implementation (``ref`` |
-``cuda``) and ``dedup=`` the dedup algorithm, as in the JAX package.
-Slab storage (``LSSConfig.slab_dtype``: fp32 | bf16 | int8) is resolved
-at :func:`build_index` time.
-
-``sparse_logits_bucketed`` (the unfused path over the ``bucket_logits``
-kernel) is not ported yet.
+``simhash_codes`` op, and ``sparse_logits_bucketed`` (the unfused path)
+scores the hit slabs through the ``bucket_logits`` op.  ``impl=`` pins an
+implementation (``ref`` | ``cuda``) and ``dedup=`` the dedup algorithm,
+as in the JAX package.  Slab storage (``LSSConfig.slab_dtype``: fp32 |
+bf16 | int8) is resolved at :func:`build_index` time.
 """
 
 from __future__ import annotations
@@ -28,14 +26,16 @@ import torch
 from repro_torch.core import simhash
 from repro_torch.core.tables import LSSTables, build_tables, bucketize_weights
 from repro_torch.core.topk import NEG_INF, topk_lowest_index
-from repro_torch.kernels import lss_topk, simhash_codes
-from repro_torch.kernels.lss_topk.slabs import (quantize_slabs,
+from repro_torch.kernels import bucket_logits, lss_topk, simhash_codes
+from repro_torch.kernels.lss_topk.slabs import (dequantize_slabs,
+                                                quantize_slabs,
                                                 resolve_slab_dtype)
 
 __all__ = [
     "NEG_INF", "LSSConfig", "LSSIndex", "LSSForward", "build_index",
-    "retrieve", "dedup_mask", "sparse_logits_gather", "lss_forward",
-    "lss_predict", "label_recall", "precision_at_k", "avg_sample_size",
+    "retrieve", "dedup_mask", "sparse_logits_gather", "bucket_slab_inputs",
+    "sparse_logits_bucketed", "lss_forward", "lss_predict", "label_recall",
+    "precision_at_k", "avg_sample_size",
 ]
 
 
@@ -45,6 +45,13 @@ class LSSConfig(NamedTuple):
     capacity: int = 0          # 0 -> auto: 2 * m / 2^K rounded up to 8
     use_bucket_major: bool = True   # materialise [L, 2^K, P, d] slabs
     slab_dtype: str | None = None   # fp32 | bf16 | int8, None = strategy
+    # IUL pair-mining thresholds (inner-product quantiles; see iul.py)
+    t1_quantile: float = 0.3
+    t2_quantile: float = 0.7
+    iul_lr: float = 1e-3
+    iul_epochs: int = 8
+    iul_batch: int = 256
+    iul_inner_steps: int = 8   # gradient steps per mined pair batch
 
     def resolve_capacity(self, m: int) -> int:
         if self.capacity:
@@ -112,6 +119,42 @@ def sparse_logits_gather(q_aug: torch.Tensor, w_aug: torch.Tensor,
     rows = w_aug[cand_ids.clamp(min=0).long()]            # [B, C, d_aug]
     logits = torch.einsum("bd,bcd->bc", q_aug.float(), rows.float())
     return torch.where(cand_ids >= 0, logits, torch.full_like(logits, NEG_INF))
+
+
+def bucket_slab_inputs(index: LSSIndex, buckets: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``bucket_logits`` operands of a bucket-major index: its slabs
+    viewed as ``[S, P, d]`` (S = L * 2^K) and the int32 ``[B, L]`` slab
+    ids ``buckets + l * 2^K``.  fp32 and bf16 slabs go as stored (the op
+    widens bf16 in registers); int8 slabs are widened to fp32 here, since
+    the op takes no scale table."""
+    t = index.tables
+    wb = index.w_bucketed
+    if wb.dtype == torch.int8:
+        wb = dequantize_slabs(wb, index.w_scale)
+    w_flat = wb.reshape(t.n_tables * t.n_buckets, t.capacity, wb.shape[-1])
+    slab_ids = buckets + torch.arange(
+        t.n_tables, dtype=buckets.dtype,
+        device=buckets.device)[None, :] * t.n_buckets           # [B, L]
+    return w_flat, slab_ids
+
+
+def sparse_logits_bucketed(q_aug: torch.Tensor, index: LSSIndex,
+                           buckets: torch.Tensor, impl: str | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucket-major path: one contiguous ``[P, d]`` slab per (query, table).
+
+    Routes through the registry ``bucket_logits`` op on the operands of
+    :func:`bucket_slab_inputs`.  Returns ``(logits, ids)``, both
+    ``[B, L*P]``; empty slots (id -1) get NEG_INF.
+    """
+    t = index.tables
+    w_flat, slab_ids = bucket_slab_inputs(index, buckets)
+    logits = bucket_logits(q_aug, w_flat, slab_ids, impl=impl)  # [B, L, P]
+    ids = t.table_ids.reshape(-1, t.capacity)[slab_ids.long()]  # [B, L, P]
+    ids = ids.reshape(q_aug.shape[0], -1)
+    logits = logits.reshape(q_aug.shape[0], -1)
+    return torch.where(ids >= 0, logits, torch.full_like(logits, NEG_INF)), ids
 
 
 class LSSForward(NamedTuple):

@@ -9,7 +9,8 @@ registry (``repro_torch.kernels.registry``) picks by device; an explicit
 (``repro_torch.kernels._build``), never at import.
 """
 from repro_torch.kernels import registry
+from repro_torch.kernels.bucket_logits import bucket_logits
 from repro_torch.kernels.lss_topk import lss_topk
 from repro_torch.kernels.simhash_codes import simhash_codes
 
-__all__ = ["registry", "simhash_codes", "lss_topk"]
+__all__ = ["registry", "simhash_codes", "lss_topk", "bucket_logits"]

@@ -31,7 +31,7 @@ __all__ = ["CSRC", "BUILD_DIR", "KERNELS", "NVCC_FLAGS", "SMEM_LIMIT_BYTES",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/kernels (src/repro_torch/kernels/_build.py -> parents[3])
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("simhash_codes", "lss_topk")
+KERNELS = ("simhash_codes", "lss_topk", "bucket_logits")
 HEADERS = ("simhash.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

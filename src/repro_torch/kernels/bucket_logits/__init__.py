@@ -1,2 +1,2 @@
-from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref
-__all__ = ["bucket_logits_ref"]
+from repro_torch.kernels.bucket_logits.ops import bucket_logits
+__all__ = ["bucket_logits"]

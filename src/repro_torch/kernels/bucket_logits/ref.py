@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the ``bucket_logits`` kernel (the kernel
-itself is not ported yet; the ``lss_topk`` plain version composes this)."""
+"""Plain PyTorch version of the ``bucket_logits`` kernel (the ``lss_topk``
+plain version composes it too)."""
 
 from __future__ import annotations
 

@@ -13,6 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.simhash import augment_queries, unit  # noqa: E402
+from repro_torch.kernels.bucket_logits import bucket_logits  # noqa: E402
+from repro_torch.kernels.bucket_logits.ops import bucket_logits_cuda  # noqa: E402
+from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref  # noqa: E402
 from repro_torch.kernels.lss_topk import lss_topk  # noqa: E402
 from repro_torch.kernels.lss_topk.ops import lss_topk_cuda  # noqa: E402
 from repro_torch.kernels.lss_topk.ref import lss_topk_ref  # noqa: E402
@@ -86,3 +89,36 @@ def test_lss_topk_kernel_matches_plain(cuda, slab_dtype, shape):
                      what="top_logits")
         assert_topk_ids_equal(got[1], want[1], want[0], 1e-4, rows=rows,
                               what="top_ids")
+
+
+@pytest.mark.parametrize("q_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("bsz,d,n_slabs,cap,n_tables",
+                         [(7, 17, 5, 33, 3),          # d, P below a warp
+                          (256, 129, 512, 808, 1),    # Delicious-200K
+                          (3, 129, 1024, 1608, 4)])   # K = 8, L = 4
+def test_bucket_logits_kernel_matches_plain(cuda, q_dtype, w_dtype, bsz, d,
+                                            n_slabs, cap, n_tables):
+    g = torch.Generator(cuda).manual_seed(bsz + d)
+    q = torch.randn(bsz, d, generator=g, device=cuda).to(q_dtype)
+    w = torch.randn(n_slabs, cap, d, generator=g, device=cuda).to(w_dtype)
+    w[:, cap // 2] = 0                                # an empty slot
+    ids = torch.randint(0, n_slabs, (bsz, n_tables), generator=g,
+                        device=cuda, dtype=torch.int32)
+    before = bucket_logits_cuda.launches
+    got = bucket_logits(q, w, ids)
+    assert bucket_logits_cuda.launches == before + 1
+    want = bucket_logits_ref(q, w, ids)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    # both widen the same bf16 bits to fp32; the sums' orders differ
+    assert_close(got, want, rtol=1e-4, atol=1e-4, what="bucket_logits")
+    assert bool((got[:, :, cap // 2] == 0).all())
+    # an id outside [0, S) reads nothing and gives NaN for its (b, l)
+    bad = ids.clone()
+    bad[0, 0] = n_slabs
+    out = bucket_logits(q, w, bad)
+    torch.cuda.synchronize()
+    assert bool(out[0, 0].isnan().all())
+    assert torch.equal(out.reshape(-1, cap)[1:], got.reshape(-1, cap)[1:])

@@ -184,11 +184,16 @@ def test_port_build_index_matches(jax_side, port):
 @pytest.mark.parametrize("name", ["wiki10-31k", "delicious-200k", "text8"])
 def test_paper_settings_match(name):
     j, t = j_cfgs.ALL[name], t_cfgs.ALL[name]
-    assert tuple(t.full)[:6] == tuple(j.full)[:6]
-    # the port's LSSConfig holds the serving fields; IUL's come with IUL
-    n = len(t.lss._fields)
-    assert t.lss._fields == j.lss._fields[:n]
-    assert tuple(t.lss) == tuple(j.lss)[:n]
+    assert t._fields == j._fields
+    assert (t.name, t.kind) == (j.name, j.kind)
+    # the port's XCConfig adds a torch dtype after the JAX fields
+    for field in ("full", "bench"):
+        assert tuple(getattr(t, field))[:6] == tuple(getattr(j, field))[:6]
+    # the whole LSSConfig, IUL's fields included
+    for field in ("lss", "bench_lss"):
+        tl, jl = getattr(t, field), getattr(j, field)
+        assert tl._fields == jl._fields
+        assert tuple(tl) == tuple(jl)
     m = j.full.output_dim
     assert t.lss.resolve_capacity(m) == j.lss.resolve_capacity(m)
 

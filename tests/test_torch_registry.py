@@ -95,8 +95,9 @@ def test_strategies_resolve_in_order(monkeypatch):
 def test_port_strategies_registered():
     names = registry.list_strategies()
     assert "lss_topk.dedup" in names and "lss_topk.slab_dtype" in names
-    assert {"simhash_codes", "lss_topk"} <= set(registry.list_ops())
-    for name in ("simhash_codes", "lss_topk"):
+    ops = ("simhash_codes", "lss_topk", "bucket_logits")
+    assert set(ops) <= set(registry.list_ops())
+    for name in ops:
         assert set(registry.get_op(name).impls) == {"ref", "cuda"}
 
 

@@ -321,27 +321,36 @@ def phase_simhash(dev, gen, q_main):
 
 
 def phase_lss_topk(dev, gen, w_aug, setting):
+    """The kernel against its plain version at the main path's shape (K, L
+    and capacity of the setting) in fp32, bf16 and int8, B = 1 and 256;
+    at K = 8, L = 4 (C = 6,432); and at K = 8, L = 4 with capacity 4,096
+    (C = 16,384, the largest C the JAX package serves: its per-slot arrays
+    go to the scratch tensor), B = 64."""
     d = w_aug.shape[1]
-    cases = [(setting.lss.k_bits, setting.lss.n_tables, s, b)
+    cases = [(setting.lss.k_bits, setting.lss.n_tables, 0, s, b)
              for s in ("fp32", "bf16", "int8") for b in (1, 256)]
-    cases.append((8, 4, "fp32", 256))
+    cases += [(8, 4, 0, "fp32", 256), (8, 4, 4096, "fp32", 64)]
     # standard-normal queries: logits of order 1, so the 1e-4 tolerances
     # of the contract bite (the random model's embeddings give ~1e-4)
     q_aug = augment_queries(torch.randn(256, d - 1, generator=gen,
                                         device=dev))
     indexes, n_rows, n_excl = {}, 0, 0
-    for k_bits, n_tables, sdt, bsz in cases:
-        key = (k_bits, n_tables, sdt)
+    for k_bits, n_tables, capacity, sdt, bsz in cases:
+        key = (k_bits, n_tables, capacity, sdt)
         if key not in indexes:
             theta = init_hyperplanes(gen, d, k_bits, n_tables, device=dev)
             indexes[key] = build_index(w_aug, theta, LSSConfig(
-                k_bits=k_bits, n_tables=n_tables, slab_dtype=sdt))
+                k_bits=k_bits, n_tables=n_tables, capacity=capacity,
+                slab_dtype=sdt))
         idx = indexes[key]
         t = idx.tables
-        smem = lss_topk_ops.lss_topk_smem_bytes(d, t.k_bits, t.n_tables,
-                                                t.capacity)
-        require(smem == lss_topk_ops._library().lss_topk_smem_bytes(
-            d, t.k_bits, t.n_tables, t.capacity), "smem formula drifted")
+        shape = (d, t.k_bits, t.n_tables, t.capacity)
+        lay = lss_topk_ops.lss_topk_layout(*shape, sdt)
+        lib = lss_topk_ops._library()
+        storage = lss_topk_ops._STORAGE[sdt]
+        require(lay.smem == lib.lss_topk_smem_bytes(*shape, storage)
+                and lay.scratch == lib.lss_topk_scratch_bytes(*shape, storage),
+                "smem or scratch formula drifted")
         q = q_aug[:bsz].contiguous()
         args = (q, idx.theta, t.table_ids, idx.w_bucketed)
         launches = lss_topk_ops.lss_topk_cuda.launches
@@ -353,7 +362,11 @@ def phase_lss_topk(dev, gen, w_aug, setting):
         b_ms, b_by, nbytes, flops = lss_topk_bound_ms(q, idx, got[3], TOP_K)
         emit({"phase": "lss_topk", "slab_dtype": sdt, "B": bsz, "d": d,
               "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
-              "C": t.n_tables * t.capacity, "smem_bytes": smem,
+              "C": t.n_tables * t.capacity, "smem_bytes": lay.smem,
+              "scratch_bytes": bsz * lay.scratch,
+              "blocks_per_sm": lss_topk_ops.lss_topk_blocks_per_sm(*shape,
+                                                                   sdt),
+              "rows_per_chunk": lay.rows,
               "excluded_rows": int((~rows).sum()), **check,
               "mean_sample": float(got[2].float().mean()), "ms": ms,
               "plain_ms": plain,

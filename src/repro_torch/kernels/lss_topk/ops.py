@@ -9,16 +9,21 @@ uses one algorithm for both choices, which give the same mask).  The slab
 storage (``lss_topk.slab_dtype``) is the index's: this op takes whatever
 format ``w_bucketed`` has, with ``w_scale`` iff it is int8.
 
-The TPU's VMEM budget warning becomes a hard limit here:
-:func:`lss_topk_smem_bytes` is the dynamic shared memory one block needs
-(q, q/|q|, theta, and the C ids, logits and sort keys), and a launch that
-needs more than the 232,448 B an H100 block can use raises.  No TPU
-padding (B to the query tile, d and P to 128 lanes) is carried over.
+The TPU's VMEM budget becomes a shared-memory layout here
+(:func:`lss_topk_layout`, the twin of ``make_layout`` in the kernel): q,
+q/|q|, theta and a ring of slab chunks always live in a block's shared
+memory; the per-slot arrays (ids, logits, int8 scales, the dedup hash
+table) join them where everything fits in the 232,448 B an H100 block can
+use, and otherwise go to a per-query scratch tensor that the wrapper
+allocates.  So every C is served; only a q/theta/ring part above the limit
+(a very wide d or K*L) is refused.  No TPU padding (B to the query tile,
+d and P to 128 lanes) is carried over.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,13 +33,21 @@ from repro_torch.kernels.lss_topk import slabs as slabs_mod
 from repro_torch.kernels.lss_topk.ref import lss_topk_ref
 from repro_torch.kernels.registry import kernel_op
 
-__all__ = ["lss_topk", "lss_topk_cuda", "lss_topk_op",
-           "lss_topk_smem_bytes"]
+__all__ = ["lss_topk", "lss_topk_cuda", "lss_topk_op", "LssTopkLayout",
+           "lss_topk_layout", "lss_topk_smem_bytes", "lss_topk_scratch_bytes",
+           "lss_topk_blocks_per_sm"]
 
 lss_topk_op = kernel_op("lss_topk")
 lss_topk_op.register_impl("ref", lss_topk_ref)
 
 _STORAGE = {"fp32": 0, "bf16": 1, "int8": 2}
+
+# the kernel's constants (csrc/lss_topk.cu)
+_WARPS = 8
+_ROWS_AT_ONCE = 8           # rows a warp dots together
+_WARP_CHUNK_BYTES = 4224    # slab bytes of one warp's chunk
+_WARP_STAGES = 2            # a warp's chunks in its ring
+_MAX_CANDIDATES = 2 ** 28   # the hash table's int32 arithmetic
 
 _lib = None
 
@@ -43,25 +56,84 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("lss_topk")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.lss_topk_launch.argtypes = [vp] * 9 + [i] * 7 + [vp]
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.lss_topk_launch.argtypes = [vp] * 10 + [i] * 7 + [vp]
         lib.lss_topk_launch.restype = i
-        lib.lss_topk_smem_bytes.argtypes = [i, i, i, i]
-        lib.lss_topk_smem_bytes.restype = i
+        for fn, res in (("lss_topk_smem_bytes", ll),
+                        ("lss_topk_scratch_bytes", ll),
+                        ("lss_topk_blocks_per_sm", i)):
+            getattr(lib, fn).argtypes = [i] * 5
+            getattr(lib, fn).restype = res
         lib.lss_topk_error_string.argtypes = [i]
         lib.lss_topk_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def lss_topk_smem_bytes(d: int, k_bits: int, n_tables: int, cap: int) -> int:
-    """Dynamic shared memory of one ``lss_topk`` block (mirrors
-    ``smem_bytes`` in ``csrc/lss_topk.cu``): 8-byte sort keys for the next
-    power of two above C, q and q/|q|, theta, C logits and C ids, and a
-    little reduction scratch."""
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class LssTopkLayout(NamedTuple):
+    rows: int          # slab rows per chunk
+    stage: int         # bytes of one ring stage
+    hash: int          # dedup hash table entries (a power of two >= 2C)
+    smem: int          # dynamic shared memory of one block
+    scratch: int       # scratch bytes per query (0: all in shared memory)
+
+
+def lss_topk_layout(d: int, k_bits: int, n_tables: int, cap: int,
+                    slab_dtype: str = "fp32") -> LssTopkLayout:
+    """One ``lss_topk`` block's memory (mirrors ``make_layout`` in
+    ``csrc/lss_topk.cu``).
+
+    Shared memory: for each of the 8 warps, 2 mbarriers and a ring of 2
+    stages (a stage holds one chunk, ~4 KB of slab rows, + 32 B: the
+    kernel rounds each chunk's bulk copy out to 16 B at both ends); q,
+    q/|q|, theta and a few small arrays.  The per-slot arrays, C ids, C
+    logits, C int8 scales and a hash table of ``hash`` slot positions
+    (load factor <= 0.5), join them if everything fits in
+    ``SMEM_LIMIT_BYTES``; otherwise they are the per-query scratch."""
     c = n_tables * cap
-    keys = 8 * dedup_mod._ceil_pow2(c)
-    return keys + 4 * (2 * d + d * k_bits * n_tables + 2 * c + 64 + n_tables + 1)
+    row_bytes = d * slabs_mod.slab_itemsize(slab_dtype)
+    rows = _WARP_CHUNK_BYTES // row_bytes
+    rows = rows - rows % _ROWS_AT_ONCE if rows >= _ROWS_AT_ONCE else max(rows, 1)
+    stage = _align16(rows * row_bytes) + 32
+    hash_entries = dedup_mod._ceil_pow2(2 * c)
+    kl = k_bits * n_tables
+    ring = _WARPS * _WARP_STAGES * (8 + stage)     # mbarriers + stages
+    vec = _align16(4 * (2 * d + d * kl + 4 * _WARPS + 2 * n_tables + kl + 1))
+    slot = _align16(4 * c * (3 if slab_dtype == "int8" else 2)
+                    + 4 * hash_entries)
+    in_smem = ring + vec + slot <= _build.SMEM_LIMIT_BYTES
+    return LssTopkLayout(rows, stage, hash_entries,
+                         ring + vec + (slot if in_smem else 0),
+                         0 if in_smem else slot)
+
+
+def lss_topk_smem_bytes(d: int, k_bits: int, n_tables: int, cap: int,
+                        slab_dtype: str = "fp32") -> int:
+    """Dynamic shared memory of one ``lss_topk`` block."""
+    return lss_topk_layout(d, k_bits, n_tables, cap, slab_dtype).smem
+
+
+def lss_topk_scratch_bytes(d: int, k_bits: int, n_tables: int, cap: int,
+                           slab_dtype: str = "fp32") -> int:
+    """Scratch bytes per query (0 when the per-slot arrays fit in shared
+    memory)."""
+    return lss_topk_layout(d, k_bits, n_tables, cap, slab_dtype).scratch
+
+
+def lss_topk_blocks_per_sm(d: int, k_bits: int, n_tables: int, cap: int,
+                           slab_dtype: str = "fp32") -> int:
+    """Blocks of this shape that fit on one SM of the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; builds the
+    kernel)."""
+    lib = _library()
+    n = lib.lss_topk_blocks_per_sm(d, k_bits, n_tables, cap,
+                                   _STORAGE[slab_dtype])
+    _build.check(max(-n, 0), "lss_topk occupancy", lib.lss_topk_error_string)
+    return n
 
 
 @lss_topk_op.impl("cuda")
@@ -72,8 +144,8 @@ def lss_topk_cuda(q_aug: torch.Tensor, theta: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """Launch the fused kernel on the current stream (no synchronise).
-    ``dedup`` is accepted and not used: the kernel's bitonic sort gives the
-    mask of either strategy."""
+    ``dedup`` is accepted and not used: the kernel's hash-table dedup
+    gives the mask of either strategy."""
     del dedup
     n_tables, n_buckets, cap = table_ids.shape
     k_bits = n_buckets.bit_length() - 1
@@ -101,12 +173,17 @@ def lss_topk_cuda(q_aug: torch.Tensor, theta: torch.Tensor,
         if t is not None and (t.dtype != dtype or t.device != q_aug.device):
             raise ValueError(f"lss_topk: {name} must be {dtype} on "
                              f"{q_aug.device}, got {t.dtype} on {t.device}")
-    smem = lss_topk_smem_bytes(d, k_bits, n_tables, cap)
-    if smem > _build.SMEM_LIMIT_BYTES:
+    if c > _MAX_CANDIDATES:
+        raise ValueError(f"lss_topk: C={c} candidates, more than the "
+                         f"{_MAX_CANDIDATES} the kernel indexes")
+    lay = lss_topk_layout(d, k_bits, n_tables, cap, sdt)
+    if lay.smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"lss_topk: C={c}, d={d}, K*L={k_bits * n_tables} needs {smem} B "
-            f"of shared memory, more than the {_build.SMEM_LIMIT_BYTES} B an "
-            f"H100 block can use; reduce the capacity, K or L")
+            f"lss_topk: d={d}, K*L={k_bits * n_tables} needs {lay.smem} B of "
+            f"shared memory for q, theta and a ring of "
+            f"{_WARPS * _WARP_STAGES} x {lay.stage} B, more than the "
+            f"{_build.SMEM_LIMIT_BYTES} B an H100 block can use; reduce d "
+            f"or K*L")
     q_aug, theta = q_aug.contiguous(), theta.contiguous()
     table_ids, w_bucketed = table_ids.contiguous(), w_bucketed.contiguous()
     scales = w_scale.contiguous() if w_scale is not None else None
@@ -115,13 +192,16 @@ def lss_topk_cuda(q_aug: torch.Tensor, theta: torch.Tensor,
     top_ids = torch.empty((bsz, top_k), dtype=torch.int32, device=dev)
     sample = torch.empty((bsz,), dtype=torch.int32, device=dev)
     cand = torch.empty((bsz, c), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((bsz * lay.scratch,), dtype=torch.uint8,
+                           device=dev) if lay.scratch else None)
     lib = _library()
     err = lib.lss_topk_launch(
         q_aug.data_ptr(), theta.data_ptr(), table_ids.data_ptr(),
         w_bucketed.data_ptr(), scales.data_ptr() if scales is not None else 0,
         top_logits.data_ptr(), top_ids.data_ptr(), sample.data_ptr(),
-        cand.data_ptr(), bsz, d, k_bits, n_tables, cap, top_k,
-        _STORAGE[sdt], torch.cuda.current_stream(dev).cuda_stream)
+        cand.data_ptr(), scratch.data_ptr() if scratch is not None else 0,
+        bsz, d, k_bits, n_tables, cap, top_k, _STORAGE[sdt],
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lss_topk", lib.lss_topk_error_string)
     lss_topk_cuda.launches += 1
     return top_logits, top_ids, sample, cand

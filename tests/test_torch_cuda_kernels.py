@@ -12,7 +12,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.simhash import augment_queries, unit  # noqa: E402
+from repro_torch.core.lss import LSSConfig, build_index  # noqa: E402
+from repro_torch.core.simhash import (augment_neurons,  # noqa: E402
+                                      augment_queries, unit)
 from repro_torch.kernels.bucket_logits import bucket_logits  # noqa: E402
 from repro_torch.kernels.bucket_logits.ops import bucket_logits_cuda  # noqa: E402
 from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref  # noqa: E402
@@ -68,13 +70,59 @@ def _case(cuda, seed, bsz, d, k_bits, n_tables, cap, m):
         torch.from_numpy(wb).to(cuda)
 
 
+def _named_case(cuda, name, slab_dtype):
+    """``(q, theta, table_ids, slabs, scales)`` of a named input."""
+    rng = np.random.default_rng(7)
+    if name == "tables":
+        # an index built from real rows: each slab's occupied slots are a
+        # prefix; d = 129 and P = 99 put int8 slab starts off 16 bytes
+        d, k_bits, n_tables = 129, 4, 2
+        w_aug = augment_neurons(
+            torch.from_numpy(rng.normal(size=(1200, d - 1))
+                             .astype(np.float32)).to(cuda),
+            torch.zeros(1200, device=cuda))
+        theta = torch.from_numpy(rng.normal(size=(d, k_bits * n_tables))
+                                 .astype(np.float32)).to(cuda)
+        idx = build_index(w_aug, theta, LSSConfig(
+            k_bits=k_bits, n_tables=n_tables, capacity=99,
+            slab_dtype=slab_dtype))
+        q = augment_queries(torch.from_numpy(
+            rng.normal(size=(64, d - 1)).astype(np.float32)).to(cuda))
+        return (q, theta, idx.tables.table_ids, idx.w_bucketed,
+                idx.w_scale)
+    if name == "dedup16k":
+        # tests/test_dedup.py's C = 16,384 shape: ids drawn from [-1, C/2),
+        # every slot row random (an empty slot's logit is masked by id)
+        bsz, d, k_bits, n_tables, cap = 4, 16, 2, 2, 8192
+        tids = rng.integers(-1, n_tables * cap // 2,
+                            size=(n_tables, 2 ** k_bits, cap))
+    else:
+        bsz, d, k_bits, n_tables, cap = 8, 33, 3, 2, 40
+        shape = (n_tables, 2 ** k_bits, cap)
+        tids = np.full(shape, 7 if name == "all_duplicate" else -1)
+    q = augment_queries(torch.from_numpy(
+        rng.normal(size=(bsz, d - 1)).astype(np.float32))).to(cuda)
+    theta = torch.from_numpy(rng.normal(size=(d, k_bits * n_tables))
+                             .astype(np.float32)).to(cuda)
+    wb = torch.from_numpy(rng.normal(size=(*tids.shape, d))
+                          .astype(np.float32)).to(cuda)
+    w, scale = quantize_slabs(wb, slab_dtype)
+    return (q, theta, torch.from_numpy(tids.astype(np.int32)).to(cuda), w,
+            scale)
+
+
 @pytest.mark.parametrize("slab_dtype", ["fp32", "bf16", "int8"])
 @pytest.mark.parametrize("shape", [(16, 17, 3, 2, 32, 50),       # C = 64
                                    (9, 33, 2, 3, 88, 150),       # C = 264
-                                   (3, 129, 8, 4, 1608, 9000)])  # C = 6432
+                                   (3, 129, 8, 4, 1608, 9000),   # C = 6432
+                                   "dedup16k",                   # C = 16384
+                                   "tables", "all_duplicate", "all_empty"])
 def test_lss_topk_kernel_matches_plain(cuda, slab_dtype, shape):
-    q, theta, tids, wb = _case(cuda, 0, *shape)
-    w, scale = quantize_slabs(wb, slab_dtype)
+    if isinstance(shape, str):
+        q, theta, tids, w, scale = _named_case(cuda, shape, slab_dtype)
+    else:
+        q, theta, tids, wb = _case(cuda, 0, *shape)
+        w, scale = quantize_slabs(wb, slab_dtype)
     c = tids.shape[0] * tids.shape[2]
     for top_k in sorted({5, c if c <= 264 else 5}):
         before = lss_topk_cuda.launches
@@ -89,6 +137,10 @@ def test_lss_topk_kernel_matches_plain(cuda, slab_dtype, shape):
                      what="top_logits")
         assert_topk_ids_equal(got[1], want[1], want[0], 1e-4, rows=rows,
                               what="top_ids")
+    if shape == "all_duplicate":
+        assert bool((got[2] == 1).all()) and bool((got[1][:, 0] == 7).all())
+    if shape == "all_empty":
+        assert bool((got[2] == 0).all()) and bool((got[1] == -1).all())
 
 
 @pytest.mark.parametrize("q_dtype,w_dtype", [

@@ -25,8 +25,9 @@ from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.lss_topk import dedup as t_dedup  # noqa: E402
 from repro_torch.kernels.lss_topk import lss_topk  # noqa: E402
 from repro_torch.kernels._build import SMEM_LIMIT_BYTES  # noqa: E402
-from repro_torch.kernels.lss_topk.ops import (lss_topk_cuda,  # noqa: E402
-                                              lss_topk_smem_bytes)
+from repro_torch.kernels.lss_topk.ops import (  # noqa: E402
+    lss_topk_cuda, lss_topk_layout, lss_topk_scratch_bytes,
+    lss_topk_smem_bytes)
 from repro_torch.kernels.lss_topk.slabs import (  # noqa: E402
     lss_topk_slab_dma_bytes, quantize_slabs)
 from repro_torch.optim.compression import (  # noqa: E402
@@ -196,11 +197,79 @@ def test_bf16_cast_matches_jax():
 
 
 def test_shared_memory_and_slab_bytes_at_delicious():
-    # P=808, d=129, K=9, L=1: keys for 1024 slots + q, q/|q|, theta, C ids
-    # and logits, reduce scratch
-    assert lss_topk_smem_bytes(129, 9, 1, 808) == \
-        8 * 1024 + 4 * (2 * 129 + 129 * 9 + 2 * 808 + 64 + 1 + 1)
-    # K=8, L=4, P=1608 (C=6432) needs the > 48 KB path and still fits
+    # P=808, d=129, K=9, L=1, fp32: for each of the 8 warps 2 mbarriers
+    # and a ring of 2 stages of 8 rows (8 * 516 B + 32 B of round-out) |
+    # q, q/|q|, theta [129, 9], reduce scratch, slab, span, bits, count |
+    # C ids and logits + a 2,048-entry hash table of slot positions
+    lay = lss_topk_layout(129, 9, 1, 808)
+    assert (lay.rows, lay.stage, lay.hash) == (8, 4160, 2048)
+    assert lay.smem == 8 * 2 * (8 + 4160) + 5856 + (4 * 808 * 2 + 4 * 2048)
+    assert lay.scratch == 0 and 2 * (lay.smem + 1024) <= 228 * 1024
+    assert lss_topk_smem_bytes(129, 9, 1, 808) == lay.smem
+    # K=8, L=4, P=1608 (C=6432) keeps its per-slot arrays in the block
     assert 48 * 1024 < lss_topk_smem_bytes(129, 8, 4, 1608) <= SMEM_LIMIT_BYTES
-    assert lss_topk_smem_bytes(129, 8, 4, 8192) > SMEM_LIMIT_BYTES
+    assert lss_topk_scratch_bytes(129, 8, 4, 1608) == 0
+    # C=16384 (K=8, L=4, P=4096, and the JAX test's d=16, L=2, P=8192) is
+    # served: its ids, logits and 32,768-entry hash table go to 256 KiB of
+    # scratch per query, and the block keeps q, theta and the ring
+    for shape in ((129, 8, 4, 4096), (16, 2, 2, 8192)):
+        big = lss_topk_layout(*shape)
+        assert big.smem <= SMEM_LIMIT_BYTES and big.hash == 32768
+        assert big.scratch == 4 * 16384 * 2 + 4 * 32768 == 262_144
+    assert lss_topk_scratch_bytes(129, 8, 4, 4096, "int8") == 327_680
+    # what the kernel cannot take: theta and the ring above the limit
+    assert lss_topk_smem_bytes(129, 32, 16, 64) > SMEM_LIMIT_BYTES
     assert lss_topk_slab_dma_bytes(1, 808, 129) == 420_160
+
+
+def _bulk_copy_span(addr, nbytes):
+    """The kernel's copy of ``[addr, addr + nbytes)``: ``(start, size)``
+    rounded out to 16 B at both ends, as a 1D ``cp.async.bulk`` needs
+    (``lo``/``hi`` in ``fetch``, ``csrc/lss_topk.cu``)."""
+    start = addr & ~15
+    return start, ((addr + nbytes + 15) & ~15) - start
+
+
+@pytest.mark.parametrize("slab_dtype", ["fp32", "bf16", "int8"])
+def test_bulk_copy_spans_fit_their_stage(slab_dtype):
+    """Every chunk the kernel copies, rounded out to 16 B, is 16-byte
+    aligned, covers its rows, fits in a ring stage, and leaves the rows at
+    an offset that is a multiple of the element size."""
+    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[slab_dtype]
+    for d, cap in ((129, 808), (17, 33), (33, 88), (16, 8192)):
+        lay = lss_topk_layout(d, 2, 2, cap, slab_dtype)
+        row_bytes = d * itemsize
+        assert lay.rows * row_bytes <= max(4224, row_bytes)
+        starts = {(s * cap + r0) * row_bytes
+                  for s in range(16) for r0 in range(0, cap, lay.rows)}
+        for base in (0, 256, 256 + itemsize):   # the tensor's data_ptr
+            for start in starts:
+                for rows in {1, lay.rows, max(1, lay.rows - 3)}:
+                    addr, n = base + start, rows * row_bytes
+                    lo, size = _bulk_copy_span(addr, n)
+                    assert lo % 16 == 0 and size % 16 == 0
+                    assert lo <= addr and addr + n <= lo + size
+                    assert lo + 16 > addr and size < n + 32
+                    assert size <= lay.stage and (addr - lo) % itemsize == 0
+    # an int8 slab of Delicious starts 16-byte aligned only for even s
+    assert [(s * 808 * 129) % 16 for s in range(4)] == [0, 8, 0, 8]
+
+
+def _dedup_case(seed, bsz=4, d=16, k_bits=2, n_tables=2, cap=8192):
+    """tests/test_dedup.py's large-C input, from numpy: ids drawn from
+    [-1, C/2), every slot row random."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(bsz, d)).astype(np.float32)
+    theta = rng.normal(size=(d, k_bits * n_tables)).astype(np.float32)
+    assert margin_rows(q, theta).all()
+    tids = rng.integers(-1, n_tables * cap // 2,
+                        size=(n_tables, 2 ** k_bits, cap)).astype(np.int32)
+    wb = rng.normal(size=(n_tables, 2 ** k_bits, cap, d)).astype(np.float32)
+    return q, theta, tids, wb
+
+
+def test_c16384_matches_jax():
+    registry.reset_dispatch_log()
+    got = _compare(_dedup_case(3), "fp32", top_k=5)
+    assert registry.last_dispatch("lss_topk.dedup") == "bitonic"
+    assert (got[2] > 6000).all() and (got[1] >= 0).all()

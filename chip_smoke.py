@@ -59,13 +59,15 @@ try:
     from repro_torch.data.synthetic import xc_dataset
     from repro_torch.kernels import _build, registry
     from repro_torch.kernels.bucket_logits import bucket_logits
-    from repro_torch.kernels.bucket_logits.ops import bucket_logits_cuda
+    from repro_torch.kernels.bucket_logits.ops import (bucket_logits_cuda,
+                                                       bucket_logits_plan)
     from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref
     from repro_torch.kernels.lss_topk import lss_topk
     from repro_torch.kernels.lss_topk import ops as lss_topk_ops
     from repro_torch.kernels.lss_topk.ref import lss_topk_ref
     from repro_torch.kernels.simhash_codes import simhash_codes
-    from repro_torch.kernels.simhash_codes.ops import simhash_codes_cuda
+    from repro_torch.kernels.simhash_codes.ops import (simhash_codes_cuda,
+                                                       simhash_codes_plan)
     from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
     from repro_torch.models.xc import XCModel
     from repro_torch.testing.parity import (assert_close, assert_ints_equal,
@@ -298,18 +300,29 @@ def phase_simhash(dev, gen, q_main):
     d = q_main.shape[1]
     n_rows = n_excl = 0
     cases = [("random", 1024, 9, 1), ("random", 1024, 8, 4),
-             ("main_path", q_main.shape[0], 9, 1)]
+             ("main_path", q_main.shape[0], 9, 1), ("main_path", 1, 9, 1)]
+    thetas = {}
     for src, bsz, k_bits, n_tables in cases:
-        theta = init_hyperplanes(gen, d, k_bits, n_tables, device=dev)
+        # B = 1 reuses the main path's theta: no draw, so every later input
+        # is the one earlier trees of this script made
+        key = (src, k_bits, n_tables)
+        if key not in thetas:
+            thetas[key] = init_hyperplanes(gen, d, k_bits, n_tables,
+                                           device=dev)
+        theta = thetas[key]
         x = unit(torch.randn(bsz, d, generator=gen, device=dev)
-                 if src == "random" else q_main)
+                 if src == "random" else q_main[:bsz])
+        plan = simhash_codes_plan(bsz, d, k_bits, n_tables,
+                                  _build.sm_count(x.device))
         launches = simhash_codes_cuda.launches
         rows, err = compare_simhash(x, theta, k_bits, n_tables)
         ms = time_ms(lambda: simhash_codes(x, theta, k_bits, n_tables))
         plain = time_ms(lambda: simhash_codes_ref(x, theta, k_bits, n_tables))
         b_ms, b_by, nbytes, flops = simhash_bound_ms(bsz, d, k_bits, n_tables)
         emit({"phase": "simhash_codes", "inputs": src, "B": bsz, "d": d,
-              "K": k_bits, "L": n_tables, "excluded_rows": int((~rows).sum()),
+              "K": k_bits, "L": n_tables, "rows_per_block": plan.rows,
+              "grid": plan.blocks, "smem_bytes": plan.smem,
+              "excluded_rows": int((~rows).sum()),
               "max_abs_err": err, "ms": ms, "plain_ms": plain,
               "launches": simhash_codes_cuda.launches - launches,
               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -382,20 +395,31 @@ def phase_lss_topk(dev, gen, w_aug, setting):
 def phase_bucket_logits(dev, gen, w_aug, setting):
     """The kernel against its plain version at the main path's shape (K, L
     of the setting: one slab of P rows per query) in fp32 and bf16, B = 1
-    and 256, and at the multi-table shape K = 8, L = 4."""
+    and 256; at the multi-table shape K = 8, L = 4; and with all 256
+    queries on one slab (the first query's), where one slab is read for
+    every query.  Each case prints its launch plan."""
     d = w_aug.shape[1]
-    cases = [(setting.lss.k_bits, setting.lss.n_tables, sdt, b)
-             for sdt in ("fp32", "bf16") for b in (1, 256)]
-    cases.append((8, 4, "fp32", 256))
+    k9, l1 = setting.lss.k_bits, setting.lss.n_tables
+    cases = [(k9, l1, sdt, b, False) for sdt in ("fp32", "bf16")
+             for b in (1, 256)]
+    cases += [(8, 4, "fp32", 256, False), (k9, l1, "fp32", 256, True)]
     # standard-normal queries: logits of order 1, so the tolerances bite
     q_aug = augment_queries(torch.randn(256, d - 1, generator=gen,
                                         device=dev))
-    for k_bits, n_tables, sdt, bsz in cases:
-        theta = init_hyperplanes(gen, d, k_bits, n_tables, device=dev)
-        idx = build_index(w_aug, theta, LSSConfig(
-            k_bits=k_bits, n_tables=n_tables, slab_dtype=sdt))
+    indexes = {}
+    for k_bits, n_tables, sdt, bsz, one_slab in cases:
+        key = (k_bits, n_tables, sdt, bsz)
+        if not one_slab:         # one slab: the hashed case's index again
+            theta = init_hyperplanes(gen, d, k_bits, n_tables, device=dev)
+            indexes[key] = build_index(w_aug, theta, LSSConfig(
+                k_bits=k_bits, n_tables=n_tables, slab_dtype=sdt))
+        idx = indexes[key]
         q = q_aug[:bsz].to(idx.w_bucketed.dtype).contiguous()
         w_flat, slab_ids = slab_inputs(q_aug[:bsz], idx)
+        if one_slab:
+            slab_ids = slab_ids[:1].expand_as(slab_ids).contiguous()
+        plan = bucket_logits_plan(bsz, n_tables, w_flat.shape[1], d,
+                                  w_flat.dtype, _build.sm_count(q.device))
         launches = bucket_logits_cuda.launches
         check = compare_bucket_logits(q, w_flat, slab_ids)
         ms = time_ms(lambda: bucket_logits(q, w_flat, slab_ids))
@@ -406,8 +430,12 @@ def phase_bucket_logits(dev, gen, w_aug, setting):
         t = idx.tables
         emit({"phase": "bucket_logits", "dtype": sdt, "B": bsz, "d": d,
               "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
-              "distinct_slabs": n_distinct, **check, "ms": ms,
-              "plain_ms": plain,
+              "slab_ids": "one slab" if one_slab else "hashed",
+              "distinct_slabs": n_distinct, "rows_per_block": plan.block_rows,
+              "rows_per_chunk": plan.rows, "grid": plan.blocks,
+              "threads": 32 * plan.warps, "query_tile": plan.group,
+              "smem_bytes": plan.smem, **check,
+              "ms": ms, "plain_ms": plain,
               "launches": bucket_logits_cuda.launches - launches,
               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
               "flops": flops})

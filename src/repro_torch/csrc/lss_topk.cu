@@ -69,7 +69,9 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "bulk_copy.cuh"
 #include "simhash.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
 
@@ -172,75 +174,6 @@ __device__ __forceinline__ float widen(T v, float scale) {
   } else {
     return static_cast<float>(v) * scale;   // int8: dequantize_int8_rows
   }
-}
-
-// Sum of a[u] over the warp for 8 values at once: a transposed butterfly
-// (4 + 2 + 1 + 2 shuffles instead of 8 x 5).  Lane l returns the sum of
-// a[(l >> 2) & 7].
-__device__ __forceinline__ float warp_sum8(const float (&a)[8], int lane) {
-  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
-  float b[4], c[2];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    b[k] = (h16 ? a[k + 4] : a[k]) +
-           __shfl_xor_sync(kFull, h16 ? a[k] : a[k + 4], 16);
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-    c[k] = (h8 ? b[k + 2] : b[k]) +
-           __shfl_xor_sync(kFull, h8 ? b[k] : b[k + 2], 8);
-  float e = (h4 ? c[1] : c[0]) + __shfl_xor_sync(kFull, h4 ? c[0] : c[1], 4);
-  e += __shfl_xor_sync(kFull, e, 2);
-  return e + __shfl_xor_sync(kFull, e, 1);
-}
-
-// ---- slab chunks: bulk async copies, a warp at a time -------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// A copy that never lands (a fault) traps after ~10 s instead of hanging
-// the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > 20000000000LL) __trap();
-}
-
-// One thread copies `bytes` (a multiple of 16) from 16-byte-aligned global
-// `src` to 16-byte-aligned shared `dst`; `bar` completes its phase when
-// they have landed.  `reused`: the stage held an earlier chunk, which the
-// warp's generic loads read, so order those before the async writes.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar,
-                                          bool reused) {
-  if (reused) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // ---- the dedup hash table ------------------------------------------------

@@ -1,26 +1,18 @@
-// SimHash scores of one row, shared by simhash_codes.cu and lss_topk.cu
-// (the fused kernel's stage 1 is exactly this hash).
+// SimHash scores, shared by simhash_codes.cu and lss_topk.cu (the fused
+// kernel's stage 1 is exactly this hash).
 //
 // Bit j of table t is  sum_i x[i] * theta[i, t*K + j] > 0  (strictly: a
 // score of 0 gives bit 0), packed little-endian: bit j weighs 2^j.
 //
-// One warp computes one score: the lanes split the d elements, and a
-// shuffle reduction sums the partials, so the dependent chain is ~d/32
-// fmas + 5 shuffles per bit instead of d fmas on one thread.  Lane 0's
-// sum is broadcast, so every lane sees the same bit.  The sum runs in
-// fp32 in another order than a matrix product's, so a bit can differ from
-// the plain version only where |score| is within rounding of 0; both
-// kernels sum in the same order, so they give the same bits.
+// A warp sums one score: lane l takes the elements i = l, l + 32, ... in
+// order, one fmaf each, and a shuffle tree sums the 32 partials.  The sum
+// runs in fp32 in another order than a matrix product's, so a bit can
+// differ from the plain version only where |score| is within rounding of
+// 0.  simhash_score and simhash_table_code sum every score in the same
+// order (warp_reduce.cuh), so both kernels give the same bits.
 #pragma once
 
-// theta [d, K*L] (row-major, global) -> theta_t [K*L, d] (shared), so that
-// consecutive lanes read consecutive words of one hyperplane.
-__device__ __forceinline__ void load_theta_transposed(
-    const float* __restrict__ theta, float* __restrict__ theta_t, int d,
-    int kl) {
-  for (int idx = threadIdx.x; idx < d * kl; idx += blockDim.x)
-    theta_t[(idx % kl) * d + idx / kl] = theta[idx];
-}
+#include "warp_reduce.cuh"
 
 // sum_i x[i] * h[i * stride] over the warp; called by all 32 lanes.
 __device__ __forceinline__ float simhash_score(const float* __restrict__ x,
@@ -33,15 +25,38 @@ __device__ __forceinline__ float simhash_score(const float* __restrict__ x,
   return __shfl_sync(0xFFFFFFFFu, s, 0);
 }
 
-// Called by all 32 lanes of a warp; x and theta_t in shared memory.
+// The code of one table: its k_bits <= kMaxK scores in one pass over d.
+// Called by all 32 lanes of a warp; x [d] and theta in shared memory, row
+// i of theta at theta + i * stride, the table's hyperplanes in columns
+// col0 .. col0 + k_bits - 1.  Each lane keeps k_bits partials, summed as
+// simhash_score sums; warp_sum8 then reduces 8 scores at a time with the
+// same tree, and a ballot gathers their signs.
+template <int kMaxK>
 __device__ __forceinline__ int simhash_table_code(
-    const float* __restrict__ x, const float* __restrict__ theta_t, int d,
-    int k_bits, int t, int lane) {
-  int code = 0;
-  for (int j = 0; j < k_bits; ++j) {
-    const float s = simhash_score(x, theta_t + (t * k_bits + j) * d, 1, d,
-                                  lane);
-    code |= (s > 0.f ? 1 : 0) << j;
+    const float* __restrict__ x, const float* __restrict__ theta, int stride,
+    int d, int k_bits, int col0, int lane) {
+  static_assert(kMaxK % 8 == 0, "scores are reduced 8 at a time");
+  float acc[kMaxK];
+#pragma unroll
+  for (int j = 0; j < kMaxK; ++j) acc[j] = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float xi = x[i];
+    const float* h = theta + i * stride + col0;
+#pragma unroll
+    for (int j = 0; j < kMaxK; ++j)
+      if (j < k_bits) acc[j] = fmaf(xi, h[j], acc[j]);
   }
-  return code;
+  unsigned code = 0;
+#pragma unroll
+  for (int g = 0; g < kMaxK; g += 8) {
+    if (g >= k_bits) break;
+    float a[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a[u] = acc[g + u];
+    // lanes 4u .. 4u + 3 hold score g + u
+    const unsigned pos = __ballot_sync(0xFFFFFFFFu, warp_sum8(a, lane) > 0.f);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) code |= (pos >> (4 * u) & 1u) << (g + u);
+  }
+  return static_cast<int>(code & ((1u << k_bits) - 1u));
 }

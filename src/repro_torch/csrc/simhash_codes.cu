@@ -3,20 +3,28 @@
 // Replaces the TPU kernel src/repro/kernels/simhash_codes/kernel.py
 // (simhash_codes_pallas / _kernel), which computes the scores as one MXU
 // product and packs the bits with a second product against a constant
-// [K*L, L] matrix.  Here one warp takes each (row, table) pair: its K dot
-// products in fp32, lanes across d with a shuffle reduction, and the bits
-// packed with shifts and ORs (simhash.cuh) — no pack matrix.
+// [K*L, L] matrix.  Here one warp takes each (row, table) pair and packs
+// the bits with shifts and ORs (simhash.cuh): no pack matrix.
 //
 // Bound on the H100: the input read.  The work is 2*B*d*K*L flops
 // (2.4 MFLOP at B=1024, d=129, K*L=9) against B*d*4 bytes of rows
 // (528 KB); both are well under a microsecond, so at the serving path's
-// shapes the kernel is bound by latency: the dependent chain of each
-// hash and the launch.  Design: a block of 8 warps stages theta,
-// transposed (d*K*L*4 B, 4.6 KB at Delicious), and a tile of kRows rows
-// in shared memory with coalesced loads, so every row byte is read from
-// device memory once and theta once per block; a warp per (row, table)
-// keeps each chain at ~d/32 fmas per bit, and kRows = 8 gives B/8
-// blocks to spread over the SMs.
+// shapes the kernel is bound by latency: the launch, one trip to device
+// memory for theta and the rows, and the dependent chain of each hash.
+// The first port hashed a table's K bits one after another, each a
+// lane-strided loop and a shuffle tree, so its time grew with K*L
+// (~0.47 us a chained bit on the H100).  This design:
+//   * hashes all K bits of a table in one pass over d: each lane keeps K
+//     partials and the K shuffle trees run interleaved, 8 at a time
+//     (simhash_table_code).  Each score is summed in the same order as
+//     before and as lss_topk.cu's stage 1, so the bits are the same;
+//   * loads theta as stored, coalesced, into shared memory, each row
+//     padded to an odd stride so that the lanes' reads of one column hit
+//     32 different banks;
+//   * gives a block rows_per_block rows (the wrapper picks it, at most
+//     kMaxRows, so that the grid covers the SMs at B = 256): a block
+//     loads theta and its rows together, each thread kLoads loads at a
+//     time, so one trip to device memory (two at K*L = 32).
 //
 // The caller passes rows already unit-normalised (core/lss.py does so in
 // retrieve), as for the TPU kernel.
@@ -26,59 +34,107 @@
 
 namespace {
 
-constexpr int kRows = 8;       // rows per block
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 8;        // rows per block, at most
+constexpr int kLoads = 16;         // loads a thread keeps in flight
+constexpr int kSmemLimit = 232448; // shared memory an H100 block can use
 
-__global__ void simhash_codes_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ theta,
-                                     int* __restrict__ out, int n_rows, int d,
-                                     int k_bits, int n_tables) {
+// theta [d, kl] as stored -> th, row i at th + i * (kl + pad); then the
+// block's rows, n_x floats, -> xs.  One index space over both, so a thread
+// keeps kLoads independent loads in flight from the start.
+__device__ __forceinline__ void stage_inputs(
+    const float* __restrict__ theta, float* __restrict__ th, int n_th,
+    int kl, int pad, const float* __restrict__ xg, float* __restrict__ xs,
+    int n_x) {
+  const int n = n_th + n_x;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kThreads * kLoads) {
+    float v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * kThreads;
+      v[u] = e < n_th ? theta[e] : (e < n ? xg[e - n_th] : 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < n_th)
+        th[e + e / kl * pad] = v[u];
+      else if (e < n)
+        xs[e - n_th] = v[u];
+    }
+  }
+}
+
+template <int kMaxK>
+__global__ void __launch_bounds__(kThreads) simhash_codes_kernel(
+    const float* __restrict__ x, const float* __restrict__ theta,
+    int* __restrict__ out, int n_rows, int d, int k_bits, int n_tables,
+    int rows_per_block, int stride) {
   extern __shared__ float smem[];
   const int kl = k_bits * n_tables;
-  float* th = smem;              // [kl, d]: theta transposed
-  float* xs = smem + d * kl;     // [kRows, d]
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n_rows - row0);
+  float* th = smem;                  // [d, stride]: theta, rows padded
+  float* xs = smem + d * stride;     // [rows, d]
+  const int row0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, n_rows - row0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  load_theta_transposed(theta, th, d, kl);
-  const float* xg = x + static_cast<size_t>(row0) * d;
-  for (int i = threadIdx.x; i < rows * d; i += blockDim.x) xs[i] = xg[i];
+  stage_inputs(theta, th, d * kl, kl, stride - kl,
+               x + static_cast<size_t>(row0) * d, xs, rows * d);
   __syncthreads();
-  for (int p = warp; p < rows * n_tables; p += kThreads / 32) {
-    const int r = p / n_tables, t = p % n_tables;
-    const int code = simhash_table_code(xs + r * d, th, d, k_bits, t, lane);
+  for (int p = warp; p < rows * n_tables; p += kWarps) {
+    const int r = p / n_tables, t = p - r * n_tables;
+    const int code = simhash_table_code<kMaxK>(xs + r * d, th, stride, d,
+                                               k_bits, t * k_bits, lane);
     if (lane == 0) out[static_cast<size_t>(row0 + r) * n_tables + t] = code;
   }
 }
 
-// Dynamic shared memory one launch needs: theta + a tile of rows.  A
-// size above the device's limit makes cudaFuncSetAttribute fail, and the
-// launch entry returns that error.
-int smem_bytes(int d, int k_bits, int n_tables) {
-  return 4 * (d * k_bits * n_tables + kRows * d);
+template <int kMaxK>
+int launch(const float* x, const float* theta, int* out, int n_rows, int d,
+           int k_bits, int n_tables, int rows_per_block, int stride,
+           int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      simhash_codes_kernel<kMaxK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0) {
+    simhash_codes_kernel<kMaxK><<<blocks, kThreads, smem, stream>>>(
+        x, theta, out, n_rows, d, k_bits, n_tables, rows_per_block, stride);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns the first CUDA error (0 = launched).
+// Launch on `stream`; returns the first CUDA error (0 = launched).  The
+// plan (rows_per_block, stride, smem) is the wrapper's
+// (kernels/simhash_codes/ops.py, simhash_codes_plan); a plan that does not
+// fit these shapes is refused with cudaErrorInvalidValue.
 int simhash_codes_launch(const void* x, const void* theta, void* out,
                          int n_rows, int d, int k_bits, int n_tables,
+                         int rows_per_block, int stride, int smem,
                          void* stream) {
-  const int smem = smem_bytes(d, k_bits, n_tables);
-  cudaError_t err = cudaFuncSetAttribute(
-      simhash_codes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_rows + kRows - 1) / kRows;
-  if (blocks > 0) {
-    simhash_codes_kernel<<<blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(theta),
-        static_cast<int*>(out), n_rows, d, k_bits, n_tables);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const long long kl = static_cast<long long>(k_bits) * n_tables;
+  const long long need = 4LL * d * stride + 4LL * rows_per_block * d;
+  if (k_bits < 1 || k_bits > 30 || n_tables < 1 || rows_per_block < 1 ||
+      rows_per_block > kMaxRows || stride < kl || smem < need ||
+      smem > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* tf = static_cast<const float*>(theta);
+  auto* o = static_cast<int*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (k_bits <= 8)
+    return launch<8>(xf, tf, o, n_rows, d, k_bits, n_tables, rows_per_block,
+                     stride, smem, st);
+  if (k_bits <= 16)
+    return launch<16>(xf, tf, o, n_rows, d, k_bits, n_tables, rows_per_block,
+                      stride, smem, st);
+  return launch<32>(xf, tf, o, n_rows, d, k_bits, n_tables, rows_per_block,
+                    stride, smem, st);
 }
 
 const char* simhash_codes_error_string(int err) {

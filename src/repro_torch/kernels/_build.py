@@ -18,6 +18,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,18 +26,23 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "NVCC_FLAGS", "SMEM_LIMIT_BYTES",
-           "nvcc_path", "library_path", "build", "load", "check"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "HEADERS", "NVCC_FLAGS",
+           "SMEM_LIMIT_BYTES", "H100_SMS", "nvcc_path", "library_path",
+           "build", "load", "check", "sm_count"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/kernels (src/repro_torch/kernels/_build.py -> parents[3])
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("simhash_codes", "lss_topk", "bucket_logits")
-HEADERS = ("simhash.cuh",)
+# every header a csrc/*.cu includes: each is part of every library's digest
+HEADERS = ("bulk_copy.cuh", "simhash.cuh", "warp_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 SMEM_LIMIT_BYTES = 232_448   # shared memory one H100 block may use
+H100_SMS = 132               # streaming multiprocessors of an H100 SXM
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -115,3 +121,14 @@ def check(err: int, what: str, error_string) -> None:
     if err != 0:
         raise RuntimeError(
             f"{what}: CUDA error {err} ({error_string(err).decode()})")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device: the launch plans size their grids by it."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

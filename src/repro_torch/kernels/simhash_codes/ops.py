@@ -1,10 +1,16 @@
 """Public op: simhash bucket codes, dispatched through the kernel registry
 (``ref`` for CPU tensors, the CUDA kernel ``csrc/simhash_codes.cu`` for
-CUDA tensors)."""
+CUDA tensors).
+
+The kernel's launch plan (:func:`simhash_codes_plan`: rows per block,
+theta's padded row stride, shared memory) is made here and passed to the
+kernel, which refuses one that does not fit the shapes.
+"""
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -12,10 +18,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.registry import kernel_op
 from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
 
-__all__ = ["simhash_codes", "simhash_codes_cuda", "simhash_codes_op"]
+__all__ = ["simhash_codes", "simhash_codes_cuda", "simhash_codes_op",
+           "SimhashCodesPlan", "simhash_codes_plan"]
 
 simhash_codes_op = kernel_op("simhash_codes")
 simhash_codes_op.register_impl("ref", simhash_codes_ref)
+
+_MAX_ROWS = 8      # rows per block, at most (kMaxRows in the kernel)
 
 _lib = None
 
@@ -25,12 +34,31 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("simhash_codes")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.simhash_codes_launch.argtypes = [vp, vp, vp, i, i, i, i, vp]
+        lib.simhash_codes_launch.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
         lib.simhash_codes_launch.restype = i
         lib.simhash_codes_error_string.argtypes = [i]
         lib.simhash_codes_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+class SimhashCodesPlan(NamedTuple):
+    rows: int       # rows of x per block
+    blocks: int     # the grid: ceil(B / rows)
+    stride: int     # theta's row stride in shared memory: K*L, made odd
+    smem: int       # dynamic shared memory of one block (bytes)
+
+
+def simhash_codes_plan(bsz: int, d: int, k_bits: int, n_tables: int,
+                       n_sms: int = _build.H100_SMS) -> SimhashCodesPlan:
+    """One launch of the kernel: as many rows a block as keep the grid at
+    least ``n_sms`` blocks (at most 8), theta's rows padded to an odd
+    stride (so a column's 32 reads hit 32 banks), theta and the rows in
+    shared memory."""
+    rows = max(1, min(_MAX_ROWS, bsz // n_sms))
+    stride = k_bits * n_tables | 1
+    return SimhashCodesPlan(rows, -(-bsz // rows), stride,
+                            4 * (d * stride + rows * d))
 
 
 @simhash_codes_op.impl("cuda")
@@ -48,13 +76,20 @@ def simhash_codes_cuda(x: torch.Tensor, theta: torch.Tensor, k_bits: int,
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"simhash_codes: {name} must be a float32 CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
+    bsz, d = x.shape
+    plan = simhash_codes_plan(bsz, d, k_bits, n_tables,
+                              _build.sm_count(x.device))
+    if plan.smem > _build.SMEM_LIMIT_BYTES:
+        raise ValueError(f"simhash_codes: d={d}, K*L={k_bits * n_tables} "
+                         f"needs {plan.smem} B of shared memory, more than "
+                         f"the {_build.SMEM_LIMIT_BYTES} B an H100 block "
+                         f"can use")
     x, theta = x.contiguous(), theta.contiguous()
-    out = torch.empty((x.shape[0], n_tables), dtype=torch.int32,
-                      device=x.device)
+    out = torch.empty((bsz, n_tables), dtype=torch.int32, device=x.device)
     lib = _library()
     err = lib.simhash_codes_launch(
-        x.data_ptr(), theta.data_ptr(), out.data_ptr(), x.shape[0],
-        x.shape[1], k_bits, n_tables,
+        x.data_ptr(), theta.data_ptr(), out.data_ptr(), bsz, d, k_bits,
+        n_tables, plan.rows, plan.stride, plan.smem,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "simhash_codes", lib.simhash_codes_error_string)
     simhash_codes_cuda.launches += 1

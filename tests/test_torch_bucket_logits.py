@@ -14,6 +14,7 @@ the JAX package allows its kernel.
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -28,8 +29,9 @@ from repro.core import simhash as jsim  # noqa: E402
 from repro.kernels import bucket_logits as j_bucket_logits  # noqa: E402
 from repro_torch.convert import lss_index_from_numpy  # noqa: E402
 from repro_torch.core import lss as tlss  # noqa: E402
-from repro_torch.kernels import bucket_logits, registry  # noqa: E402
-from repro_torch.kernels.bucket_logits.ops import bucket_logits_cuda  # noqa: E402
+from repro_torch.kernels import _build, bucket_logits, registry  # noqa: E402
+from repro_torch.kernels.bucket_logits.ops import (  # noqa: E402
+    bucket_logits_cuda, bucket_logits_plan)
 from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref  # noqa: E402
 from repro_torch.kernels.lss_topk.slabs import dequantize_slabs  # noqa: E402
 from repro_torch.testing.parity import (assert_close,  # noqa: E402
@@ -223,3 +225,145 @@ def test_bucket_slab_inputs_layout(jax_bucketed, slab_dtype):
     assert slab_ids.dtype == torch.int32
     for l in range(t.n_tables):
         assert torch.equal(slab_ids[:, l], buckets[:, l] + l * t.n_buckets)
+
+
+# ---------------------------------------------- the kernel's launch plan --
+# bucket_logits_plan is what the CUDA wrapper passes to the kernel; these
+# run its arithmetic here, as the kernel (csrc/bucket_logits.cu) reads it.
+
+DELICIOUS_SHAPES = [(1, 1, 808), (256, 1, 808), (256, 4, 1608)]   # B, L, P
+PLAN_SHAPES = [(b, l, p, 129, dt) for b, l, p in DELICIOUS_SHAPES
+               for dt in (torch.float32, torch.bfloat16)]
+PLAN_SHAPES += [(7, 3, 33, 17, torch.float32), (5, 2, 45, 33, torch.bfloat16),
+                (3, 1, 1, 129, torch.float32), (2, 2, 10, 0, torch.float32),
+                (9, 1, 4000, 897, torch.float32)]
+
+
+def _tiles(slab_ids, group):
+    """The kernel's grouping: the (b, l)s on one slab, in (b, l) order, cut
+    into tiles of ``group``; a tile is served by its first (b, l)'s blocks.
+    Returns {leader: members}."""
+    flat = list(np.asarray(slab_ids).reshape(-1))
+    tiles = {}
+    for bl, s in enumerate(flat):
+        rank = flat[:bl].count(s)
+        if rank % group == 0:
+            tiles[bl] = [e for e in range(bl, len(flat))
+                         if flat[e] == s][:group]
+    return tiles
+
+
+def _rows_written(plan, n_bl, cap, tiles):
+    """Each (b, l, row) the launch writes, with repeats: block x serves rows
+    [r_begin, r_end) of (b, l) = x // splits; warp w takes chunks w,
+    w + warps, ... of `rows` rows; a leader writes them for its tile."""
+    written = []
+    for x in range(plan.blocks):
+        bl, split = divmod(x, plan.splits)
+        if bl not in tiles:
+            continue
+        r_begin = split * plan.block_rows
+        r_end = min(cap, r_begin + plan.block_rows)
+        n_chunks = -(-(r_end - r_begin) // plan.rows)
+        for warp in range(plan.warps):
+            for n in range(warp, n_chunks, plan.warps):
+                r0 = r_begin + n * plan.rows
+                for member in tiles[bl]:
+                    written += [(member, r) for r in
+                                range(r0, min(r0 + plan.rows, r_end))]
+    return written
+
+
+@pytest.mark.parametrize("bsz,n_tables,cap,d,dtype", PLAN_SHAPES)
+def test_plan_writes_every_row_once(bsz, n_tables, cap, d, dtype):
+    """Without grouping (distinct slabs) and with it (few slabs, so tiles
+    of several queries), every (b, l, row) is written exactly once."""
+    plan = bucket_logits_plan(bsz, n_tables, cap, d, dtype)
+    n_bl = bsz * n_tables
+    assert plan.blocks == n_bl * plan.splits
+    assert (plan.splits - 1) * plan.block_rows < cap <= \
+        plan.splits * plan.block_rows
+    rng = np.random.default_rng(bsz + cap)
+    for slab_ids in (np.arange(n_bl), rng.integers(0, 3, size=n_bl)):
+        tiles = (_tiles(slab_ids, plan.group) if plan.n_ids
+                 else {bl: [bl] for bl in range(n_bl)})
+        if plan.n_ids:
+            assert plan.n_ids == n_bl and plan.group == 4
+        written = _rows_written(plan, n_bl, cap, tiles)
+        assert len(written) == len(set(written)) == n_bl * cap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,n_tables,cap", DELICIOUS_SHAPES)
+def test_plan_fills_the_card(bsz, n_tables, cap, dtype):
+    """At Delicious-200K's width the grid is at least one block per SM at
+    B = 1 as at B = 256, and 3 blocks fit on an SM (228 KB, 1 KB of it
+    reserved per block)."""
+    plan = bucket_logits_plan(bsz, n_tables, cap, 129, dtype)
+    assert plan.blocks >= _build.H100_SMS
+    assert plan.warps == 8 and plan.smem <= _build.SMEM_LIMIT_BYTES
+    assert 3 * (plan.smem + 1024) <= 228 * 1024
+    # a warp's chunk is at most ~4 KB of whole rows, 8 rows at a time
+    assert plan.rows * 129 * dtype.itemsize <= 4224
+    assert plan.stage == ((plan.rows * 129 * dtype.itemsize + 15) & ~15) + 32
+    if bsz == 1:      # one slab over the SMs: no slab ids read, no grouping
+        assert (plan.n_ids, plan.group) == (0, 1)
+        assert plan.block_rows * plan.splits >= cap and plan.splits >= 132
+    else:             # the ids a block reads are <= 1/32 of its rows' bytes
+        assert plan.block_rows * 129 * dtype.itemsize >= 32 * 4 * plan.n_ids
+
+
+def test_plan_for_wide_rows():
+    """Rows too wide for 8 rings give up grouping, then warps; rows too
+    wide for one ring leave no warp, which the wrapper refuses."""
+    for d in (129, 2049, 7000, 19000):
+        plan = bucket_logits_plan(2, 1, 5, d)
+        assert plan.smem <= _build.SMEM_LIMIT_BYTES
+        assert plan.warps == (8 if d <= 2049 else (3 if d == 7000 else 1))
+        assert (plan.n_ids, plan.group) == ((2, 4) if d <= 2049 else (0, 1))
+    assert bucket_logits_plan(2, 1, 5, 30000).warps == 0
+
+
+def _bulk_copy_span(addr, nbytes):
+    """The kernel's copy of ``[addr, addr + nbytes)``: ``(start, size)``
+    rounded out to 16 B at both ends (``bulk_span``, csrc/bulk_copy.cuh)."""
+    start = addr & ~15
+    return start, ((addr + nbytes + 15) & ~15) - start
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [129, 17, 33])
+def test_bulk_copy_spans_fit_their_stage(dtype, d):
+    """Every chunk of every block, rounded out to 16 B, is 16-byte aligned,
+    covers its rows, fits in a ring stage, and leaves the rows at an
+    offset that is a multiple of the element size, for slab tensors whose
+    data_ptr is aligned or 2 bytes past it."""
+    itemsize = dtype.itemsize
+    for bsz, n_tables, cap in ((1, 1, 808), (256, 1, 808), (5, 2, 45)):
+        plan = bucket_logits_plan(bsz, n_tables, cap, d, dtype)
+        row_bytes = d * itemsize
+        chunks = set()
+        for split in range(plan.splits):
+            r_begin = split * plan.block_rows
+            r_end = min(cap, r_begin + plan.block_rows)
+            for r0 in range(r_begin, r_end, plan.rows):
+                chunks.add((r0, min(plan.rows, r_end - r0)))
+        for base in (0, 256, 256 + itemsize):        # the tensor's data_ptr
+            for s in range(4):                       # the slab
+                for r0, n in chunks:
+                    addr = base + (s * cap + r0) * row_bytes
+                    lo, size = _bulk_copy_span(addr, n * row_bytes)
+                    assert lo % 16 == 0 and size % 16 == 0
+                    assert lo <= addr and addr + n * row_bytes <= lo + size
+                    assert size <= plan.stage and (addr - lo) % itemsize == 0
+
+
+def test_build_headers_list_every_include():
+    """_build.HEADERS goes into every library's digest, so a header missing
+    from it would let an edit load a stale library."""
+    includes = set()
+    for f in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
+        includes |= set(re.findall(r'#include\s+"([^"]+)"', f.read_text()))
+    assert includes and includes <= set(_build.HEADERS)
+    assert set(_build.HEADERS) == {f.name for f in _build.CSRC.glob("*.cuh")}
+    assert {f.stem for f in _build.CSRC.glob("*.cu")} == set(_build.KERNELS)

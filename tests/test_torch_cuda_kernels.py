@@ -16,14 +16,16 @@ from repro_torch.core.lss import LSSConfig, build_index  # noqa: E402
 from repro_torch.core.simhash import (augment_neurons,  # noqa: E402
                                       augment_queries, unit)
 from repro_torch.kernels.bucket_logits import bucket_logits  # noqa: E402
-from repro_torch.kernels.bucket_logits.ops import bucket_logits_cuda  # noqa: E402
+from repro_torch.kernels.bucket_logits.ops import (  # noqa: E402
+    bucket_logits_cuda, bucket_logits_plan)
 from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref  # noqa: E402
 from repro_torch.kernels.lss_topk import lss_topk  # noqa: E402
 from repro_torch.kernels.lss_topk.ops import lss_topk_cuda  # noqa: E402
 from repro_torch.kernels.lss_topk.ref import lss_topk_ref  # noqa: E402
 from repro_torch.kernels.lss_topk.slabs import quantize_slabs  # noqa: E402
 from repro_torch.kernels.simhash_codes import simhash_codes  # noqa: E402
-from repro_torch.kernels.simhash_codes.ops import simhash_codes_cuda  # noqa: E402
+from repro_torch.kernels.simhash_codes.ops import (  # noqa: E402
+    simhash_codes_cuda, simhash_codes_plan)
 from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref  # noqa: E402
 from repro_torch.testing.parity import (assert_close,  # noqa: E402
                                         assert_ints_equal,
@@ -41,8 +43,13 @@ def cuda():
 
 
 @pytest.mark.parametrize("bsz,d,k_bits,n_tables",
-                         [(37, 17, 4, 3), (1024, 129, 9, 1), (5, 129, 8, 4)])
+                         [(37, 17, 4, 3), (1024, 129, 9, 1), (5, 129, 8, 4),
+                          (1, 129, 9, 1), (256, 129, 9, 1),
+                          (1000, 129, 8, 4)])   # 7 rows a block: 1000 % 7
 def test_simhash_codes_kernel_matches_plain(cuda, bsz, d, k_bits, n_tables):
+    if bsz == 1000:
+        rows = simhash_codes_plan(bsz, d, k_bits, n_tables).rows
+        assert rows == 7 and bsz % rows
     g = torch.Generator(cuda).manual_seed(bsz)
     x = unit(torch.randn(bsz, d, generator=g, device=cuda))
     theta = torch.randn(d, k_bits * n_tables, generator=g, device=cuda)
@@ -149,6 +156,7 @@ def test_lss_topk_kernel_matches_plain(cuda, slab_dtype, shape):
 @pytest.mark.parametrize("bsz,d,n_slabs,cap,n_tables",
                          [(7, 17, 5, 33, 3),          # d, P below a warp
                           (256, 129, 512, 808, 1),    # Delicious-200K
+                          (1, 129, 512, 808, 1),      # one query
                           (3, 129, 1024, 1608, 4)])   # K = 8, L = 4
 def test_bucket_logits_kernel_matches_plain(cuda, q_dtype, w_dtype, bsz, d,
                                             n_slabs, cap, n_tables):
@@ -174,3 +182,39 @@ def test_bucket_logits_kernel_matches_plain(cuda, q_dtype, w_dtype, bsz, d,
     torch.cuda.synchronize()
     assert bool(out[0, 0].isnan().all())
     assert torch.equal(out.reshape(-1, cap)[1:], got.reshape(-1, cap)[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_logits_one_slab_for_every_query(cuda, dtype):
+    """256 queries on one Delicious-200K slab: every block of the grid
+    reads the same rows."""
+    g = torch.Generator(cuda).manual_seed(11)
+    q = torch.randn(256, 129, generator=g, device=cuda)
+    w = torch.randn(64, 808, 129, generator=g, device=cuda).to(dtype)
+    ids = torch.full((256, 1), 37, dtype=torch.int32, device=cuda)
+    got = bucket_logits(q, w, ids)
+    want = bucket_logits_ref(q, w, ids)
+    torch.cuda.synchronize()
+    assert got.shape == (256, 1, 808)
+    assert_close(got, want, rtol=1e-4, atol=1e-4, what="bucket_logits")
+
+
+@pytest.mark.parametrize("d", [129, 17])
+def test_bucket_logits_bf16_slabs_off_16_bytes(cuda, d):
+    """bf16 slabs whose data_ptr is 2 bytes past an aligned address: every
+    bulk copy is rounded out to 16 B at both ends and read at its offset."""
+    n_slabs, cap, bsz = 6, 45, 9
+    g = torch.Generator(cuda).manual_seed(d)
+    base = torch.randn(n_slabs * cap * d + 1, generator=g,
+                       device=cuda).bfloat16()
+    w = base[1:].view(n_slabs, cap, d)
+    assert w.data_ptr() % 16 == 2
+    q = torch.randn(bsz, d, generator=g, device=cuda)
+    ids = torch.randint(0, n_slabs, (bsz, 2), generator=g, device=cuda,
+                        dtype=torch.int32)
+    plan = bucket_logits_plan(bsz, 2, cap, d, torch.bfloat16)
+    assert plan.rows < cap                 # several copies a slab
+    got = bucket_logits(q, w, ids)
+    want = bucket_logits_ref(q, w, ids)
+    torch.cuda.synchronize()
+    assert_close(got, want, rtol=1e-4, atol=1e-4, what="bucket_logits")

@@ -14,11 +14,19 @@ port's paths at Delicious-200K's full width (random weights from a seed):
 * ``unfused_path``: the learned index, with fp32 and with bf16 slabs,
   served through ``retrieve`` and ``sparse_logits_bucketed`` (the
   ``bucket_logits`` kernel), held against the gather path and the fused
-  ``lss_forward``.
+  ``lss_forward``;
+* ``train_wol``: the paper's pipeline through
+  ``repro_torch.examples.train_wol.run``: train the model 500 steps with
+  the trainer (checkpoints every 100 steps to a temporary directory),
+  ``fit_lss`` on its embeddings (``simhash_codes``), and serve the trained
+  index (``lss_topk``) against the exact full head, with the learned
+  index's recall held against a random-SimHash index's;
+* ``preemption``: at ``DELICIOUS.bench`` width, a run that crashes at step
+  25 and resumes from its checkpoint ends where an uninterrupted run ends.
 
 Each path is driven with the kernels' launch counts set to 0 just before
-it and read just after; a kernel of the path that was not launched fails
-the run.
+it and read just after (``train_wol``: after each of its stages); a kernel
+of the path that was not launched fails the run.
 
 Every phase prints one JSON line; a failed check or an exception exits
 non-zero.  The line before the last is the card's name and power limit
@@ -34,6 +42,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -56,7 +65,9 @@ try:
                                           init_hyperplanes, unit)
     from repro_torch.core.tables import build_tables, bucketize_weights
     from repro_torch.core.topk import NEG_INF, topk_lowest_index
+    from repro_torch.data.pipeline import ShardedBatchIterator
     from repro_torch.data.synthetic import xc_dataset
+    from repro_torch.examples import train_wol
     from repro_torch.kernels import _build, registry
     from repro_torch.kernels.bucket_logits import bucket_logits
     from repro_torch.kernels.bucket_logits.ops import (bucket_logits_cuda,
@@ -69,10 +80,13 @@ try:
     from repro_torch.kernels.simhash_codes.ops import (simhash_codes_cuda,
                                                        simhash_codes_plan)
     from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
+    from repro_torch.models import xc
     from repro_torch.models.xc import XCModel
     from repro_torch.testing.parity import (assert_close, assert_ints_equal,
                                             assert_topk_ids_equal,
                                             margin_rows)
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.utils.tree import tree_leaves
 except ImportError as e:
     sys.exit(f"chip_smoke: {e} (run it from the repository root)")
 
@@ -91,6 +105,11 @@ HEAD_RTOL, HEAD_ATOL = 1e-4, 1e-8
 # iul: one loss and its theta gradient on the card against the same call
 # on CPU copies (the sums run in other orders on the two devices)
 IUL_RTOL = IUL_ATOL = 1e-5
+# preemption: the resumed run's parameters against the uninterrupted run's.
+# An element whose Adam step flipped sign would be 2 lr = 1e-2 off; sums
+# taken in another order over 15 steps move a parameter by ~1e-7 (the JAX
+# package against the port on the CPU, tests/test_torch_train_infra.py)
+PREEMPT_ATOL = 1e-5
 
 # ---- the card's published peaks (H100 SXM data sheet) for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
@@ -100,6 +119,7 @@ SPIN_CLOCK_HZ = 1.98e9     # boost clock: converts host seconds to spin cycles
 SEED = 0
 N_REQUESTS, BATCH, TOP_K = 2048, 256, 5
 TIME_ITERS = 20
+STEP_ITERS = 10            # train steps timed after train_wol's run
 
 
 class SmokeFailure(AssertionError):
@@ -674,6 +694,211 @@ def phase_unfused_path(dev, model, index, data, counters):
     return launches, augment_queries(model.embed(batches[0]))
 
 
+def phase_train_wol(dev, counters):
+    """The paper's pipeline at Delicious-200K width through the example's
+    ``run``: train 500 steps (checkpoints in a temporary directory, removed
+    afterwards), ``fit_lss``, serve the first 512 training rows.  The
+    kernels' launch counts are set to 0 before the run and read and reset
+    after each stage.  Then, on the trained model: ms per train step, both
+    heads' ms per 256-query batch, the LSS logits against the WOL's, the
+    trained index's first batch through ``compare_lss_topk``, and the
+    learned index's recall against a random-SimHash index's."""
+    marks = []
+    base_mem = torch.cuda.memory_allocated()
+
+    def on_stage(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter(),
+                      {fn.__name__: fn.launches for fn in counters},
+                      (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20))
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="train_wol_") as ckpt_dir:
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = train_wol.run(ckpt_dir=ckpt_dir, device=dev, on_stage=on_stage)
+    seconds, launches, peak_mb, prev = {}, {}, {}, t0
+    for name, t, counts, peak in marks:
+        seconds[name], launches[name], peak_mb[name], prev = \
+            t - prev, counts, peak, t
+    cfg, lss, tr = res["config"], res["lss_config"], res["trainer"]
+    hist, iul_hist = res["history"], res["iul_history"]
+
+    for h in hist:
+        emit({"phase": "train_wol_step", **h})
+    losses = [h["loss"] for h in hist]
+    require(all(np.isfinite(losses)), "train_wol: a loss is not finite")
+    require(len(hist) > 1 and losses[-1] < losses[0],
+            f"train_wol: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    require(hist[-1]["step"] == res["steps"] == 500, "train_wol: steps")
+
+    # ms per step: host clock around synchronised steps of the trainer's
+    # step function on the trained state (results dropped)
+    data = res["data"]
+    batch = next(ShardedBatchIterator({"x": data.x, "labels": data.labels},
+                                      BATCH, device=dev))
+    step_ms = []
+    for _ in range(STEP_ITERS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.step_fn(res["state"], batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    n_params = sum(t.numel() for t in tree_leaves(res["state"].params))
+    require(n_params == cfg.param_count() == DELICIOUS.full.param_count(),
+            "train_wol: not the full-width model")
+    # a step holds the old state, the gradients (twice: before and after
+    # clipping), the new state and the activations, under 4x the state;
+    # a state kept alive from step to step grows past it in a few steps
+    state_mb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(res["state"])) / 2 ** 20
+    emit({"phase": "train_wol_train", "model": cfg.name,
+          "input_dim": cfg.input_dim, "hidden": cfg.hidden,
+          "output_dim": cfg.output_dim, "params": n_params,
+          "steps": res["steps"], "batch": BATCH,
+          "train_rows": int(data.x.shape[0]), "seconds": seconds["train"],
+          "ms_per_step_median": float(np.median(step_ms)),
+          "ms_per_step": step_ms, "saves": len(tr.save_seconds),
+          "save_seconds": tr.save_seconds,
+          "seconds_less_saves": seconds["train"] - sum(tr.save_seconds),
+          "state_mb": state_mb, "peak_device_memory_mb": peak_mb,
+          "launches": launches["train"]})
+    require(peak_mb["train"] < 4 * state_mb,
+            f"train_wol: {peak_mb['train']:.0f} MB at the peak of training")
+
+    for ep in range(len(iul_hist["loss"])):
+        emit({"phase": "train_wol_iul_epoch", "epoch": ep,
+              **{k: v[ep] for k, v in iul_hist.items()}})
+    index = res["index"]
+    t = index.tables
+    emit({"phase": "train_wol_fit_lss", "seconds": seconds["fit_lss"],
+          "queries": int(data.x.shape[0]) - res["n_test"], "K": t.k_bits,
+          "L": t.n_tables, "P": t.capacity, "epochs": lss.iul_epochs,
+          "inner_steps": lss.iul_inner_steps, "lr": lss.iul_lr,
+          "best_recall": max(iul_hist["recall"]),
+          "launches": launches["fit_lss"]})
+    require(launches["fit_lss"]["simhash_codes_cuda"] > 0,
+            "simhash_codes was not launched by fit_lss")
+    require(launches["serve"]["lss_topk_cuda"] > 0,
+            "lss_topk was not launched while serving the trained index")
+
+    model = res["model"]
+    w, b = model.w_out.float(), model.b_out.float()
+    n_test = res["n_test"]
+    q_te = model.embed(torch.from_numpy(data.x[:n_test]).to(dev))
+    lab_te = torch.from_numpy(data.labels[:n_test]).to(dev)
+
+    def full_head(q):
+        return topk_lowest_index(q @ w.T + b, TOP_K)
+
+    def lss_head(q):
+        return lss_predict(q, index, None, TOP_K)
+
+    heads = {"full": full_head, "lss": lss_head}
+    out, ms = {}, {}
+    for name, fn in heads.items():
+        out[name] = [fn(q_te[i:i + BATCH]) for i in range(0, n_test, BATCH)]
+        elapsed = []
+        for _ in range(5):
+            for i in range(0, n_test, BATCH):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn(q_te[i:i + BATCH])
+                torch.cuda.synchronize()
+                elapsed.append(time.perf_counter() - t1)
+        ms[name] = float(np.median(elapsed)) * 1e3
+    lss_logits = torch.cat([o[0] for o in out["lss"]])
+    lss_ids = torch.cat([o[1] for o in out["lss"]])
+    full_ids = torch.cat([o[1] for o in out["full"]])
+    # each LSS top logit is the WOL's logit of the same id: LSS scores
+    # [q, 0]·[w, b], the full head's logit less its bias
+    valid = lss_ids >= 0
+    require(bool(torch.isfinite(lss_logits[valid]).all()), "finite logits")
+    exact = (q_te[:, None, :] * w[lss_ids.clamp(min=0).long()]).sum(-1)
+    head_err = assert_close(lss_logits[valid], exact[valid], rtol=HEAD_RTOL,
+                            atol=HEAD_ATOL, what="trained lss vs WOL logits")
+
+    # the kernel against its plain version on the trained, skewed index
+    q_aug = augment_queries(q_te[:BATCH])
+    rows, check, _ = compare_lss_topk(q_aug, index.theta, t.table_ids,
+                                      index.w_bucketed, index.w_scale, TOP_K)
+    emit({"phase": "train_wol_kernel_check",
+          "excluded_rows": int((~rows).sum()), **check})
+    require((~rows).sum() < MAX_EXCLUDED_FRAC * BATCH,
+            "train_wol: rows lack the hash margin")
+
+    # the JAX package's claim: the learned index retrieves labels at least
+    # as well as a random-SimHash index of the same shape
+    w_aug = augment_neurons(w, b)
+    theta0 = init_hyperplanes(torch.Generator(dev).manual_seed(9),
+                              w_aug.shape[1], t.k_bits, t.n_tables,
+                              device=dev)
+    idx0 = build_index(w_aug, theta0, lss)
+    q_aug_te = augment_queries(q_te)
+    cand, _ = retrieve(q_aug_te, index)
+    rec_learned = float(label_recall(cand, lab_te))
+    rec_random = float(label_recall(retrieve(q_aug_te, idx0)[0], lab_te))
+    emit({"phase": "train_wol_serve", "rows": n_test, "batch": BATCH,
+          "eval_rows": "the first 512 training rows", "top_k": TOP_K,
+          "full": {**res["full"], "ms_per_batch": ms["full"]},
+          "lss": {**res["lss"], "n_dropped": res["n_dropped"],
+                  "ms_per_batch": ms["lss"]},
+          "top1_agreement": float((lss_ids[:, 0] == full_ids[:, 0])
+                                  .float().mean()),
+          "random_simhash_recall": rec_random,
+          "random_simhash_n_dropped": int(idx0.tables.n_dropped.sum()),
+          "lss_vs_wol_logit_max_abs_err": head_err,
+          "seconds": seconds["serve"], "launches": launches["serve"]})
+    require(rec_learned == res["lss"]["label_recall"],
+            "train_wol: recall differs from the run's")
+    require(rec_learned >= rec_random,
+            f"learned recall {rec_learned} below random {rec_random}")
+
+
+def phase_preemption(dev):
+    """At ``DELICIOUS.bench`` width (the example's ``--fast`` data): 40
+    steps uninterrupted, against a run that crashes at step 25 (checkpoints
+    every 10) and resumes from step 20 in a new trainer."""
+    cfg = DELICIOUS.bench
+    data = xc_dataset(11, 2048, cfg.input_dim, cfg.output_dim, n_topics=128,
+                      max_in=cfg.max_in, max_labels=cfg.max_labels)
+    arrays = {"x": data.x, "labels": data.labels}
+    tc = TrainConfig(lr=5e-3, warmup_steps=5, total_steps=40,
+                     weight_decay=0.0, ckpt_every=10, keep_last=2)
+
+    def fit(ckpt_dir, crash_after=None):
+        tr = Trainer(lambda p, b: xc.loss(p, b, cfg),
+                     lambda g: xc.init_params(g, cfg, dev), tc,
+                     ckpt_dir=ckpt_dir, device=dev)
+        it = ShardedBatchIterator(arrays, BATCH, seed=7, device=dev)
+        return tr.fit(torch.Generator(dev).manual_seed(0), it, 40,
+                      crash_after=crash_after, log_every=10 ** 9)[0]
+
+    with tempfile.TemporaryDirectory(prefix="preempt_") as root:
+        ref = fit(f"{root}/a")
+        try:
+            fit(f"{root}/b", crash_after=25)
+        except RuntimeError as e:
+            require("simulated preemption" in str(e), f"preemption: {e}")
+        else:
+            raise SmokeFailure("preemption: the run did not crash")
+        got = fit(f"{root}/b")
+    errs = {k: float((got.params[k] - ref.params[k]).abs().max())
+            for k in ref.params}
+    emit({"phase": "preemption", "model": cfg.name, "steps": 40,
+          "crash_after": 25, "resumed_from": 20, "max_abs_err": errs,
+          "bitwise_equal": all(torch.equal(got.params[k], ref.params[k])
+                               for k in ref.params), "atol": PREEMPT_ATOL})
+    require(int(got.step) == 40, "preemption: the resumed run's step")
+    require(max(errs.values()) <= PREEMPT_ATOL,
+            f"preemption: resumed parameters differ by {max(errs.values())}")
+
+
 def bucket_logits_entry(index, q_aug0, launches):
     """bucket_logits at the unfused path's shapes (its first batch)."""
     w_flat, slab_ids = slab_inputs(q_aug0, index)
@@ -766,6 +991,8 @@ def main() -> int:
     u_launches, q_aug0 = phase_unfused_path(dev, model, learned, data,
                                             counters)
     line["kernels"].append(bucket_logits_entry(learned, q_aug0, u_launches))
+    phase_train_wol(dev, counters)
+    phase_preemption(dev)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(line)
     print(smi, flush=True)

@@ -13,11 +13,16 @@ import torch
 from repro_torch.core.lss import LSSIndex
 from repro_torch.core.tables import LSSTables
 from repro_torch.device import resolve_device
-from repro_torch.models.xc import XCConfig, XCModel
+from repro_torch.models.xc import XCModel
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.trainer import TrainState
 
 __all__ = ["tensor_from_numpy", "xc_params_from_numpy",
-           "lss_index_from_numpy", "adamw_state_from_numpy"]
+           "lss_index_from_numpy", "adamw_state_from_numpy",
+           "train_state_from_numpy"]
+
+# JAX's XC parameter names -> the port's (the rest are the same)
+_XC_NAMES = {"embed": "embed_table"}
 
 
 def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
@@ -30,23 +35,19 @@ def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _params(tree, dev: torch.device):
+    """A (nested) dict of arrays -> tensors on ``dev``, JAX's XC names
+    mapped to the port's."""
+    if isinstance(tree, dict):
+        return {_XC_NAMES.get(k, k): _params(v, dev) for k, v in tree.items()}
+    return tensor_from_numpy(tree, dev)
+
+
 def xc_params_from_numpy(params: dict, device: str | torch.device | None = None
                          ) -> XCModel:
     """An :class:`XCModel` holding the JAX ``xc.init_params`` dict
     (``embed``, ``w_out``, ``b_out``), sized from the arrays."""
-    dev = resolve_device(device)
-    embed = tensor_from_numpy(params["embed"], dev)
-    w_out = tensor_from_numpy(params["w_out"], dev)
-    b_out = tensor_from_numpy(params["b_out"], dev)
-    cfg = XCConfig("converted", input_dim=embed.shape[0],
-                   hidden=embed.shape[1], output_dim=w_out.shape[0],
-                   dtype=embed.dtype)
-    model = XCModel(cfg, torch.Generator(), device="cpu").to(dev)
-    with torch.no_grad():
-        model.embed_table.copy_(embed)
-        model.w_out.copy_(w_out)
-        model.b_out.copy_(b_out)
-    return model
+    return XCModel.from_params(_params(params, resolve_device(device)))
 
 
 def lss_index_from_numpy(theta, table_ids, n_dropped, w_bucketed, w_scale,
@@ -72,10 +73,18 @@ def adamw_state_from_numpy(step, mu, nu,
     (``mu`` and ``nu`` an array or a nested dict of arrays), so that the
     port can resume from JAX's Adam moments."""
     dev = resolve_device(device)
-
-    def conv(tree):
-        if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        return tensor_from_numpy(tree, dev)
     return AdamWState(tensor_from_numpy(step, dev).to(torch.int32),
-                      conv(mu), conv(nu))
+                      _params(mu, dev), _params(nu, dev))
+
+
+def train_state_from_numpy(params, opt, step,
+                           device: str | torch.device | None = None
+                           ) -> TrainState:
+    """A :class:`TrainState` from the fields of a JAX ``TrainState``:
+    ``params`` (an array or a nested dict), ``opt`` the ``(step, mu, nu)``
+    of its ``AdamWState``, and ``step``; JAX's ``embed`` becomes
+    ``embed_table``."""
+    dev = resolve_device(device)
+    return TrainState(_params(params, dev),
+                      adamw_state_from_numpy(*opt, device=dev),
+                      tensor_from_numpy(step, dev).to(torch.int32))

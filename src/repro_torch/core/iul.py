@@ -22,10 +22,10 @@ What differs from the JAX module (the functions computed do not):
   (advanced in place), from which :func:`iul_refit_epoch` draws the order.
 * ``lax.scan`` is a Python loop, and the jitted epoch and rebuild are
   plain calls.
-* An epoch gathers each mined batch's pair rows once, not on every inner
-  step (a gather is exact), so :func:`collision_prob` takes the gathered
-  rows ``w_aug[pairs.pos_w]`` and ``w_aug[pairs.neg_w]`` instead of
-  ``w_aug``.
+* An epoch gathers each mined batch's pair rows, and normalises them and
+  the queries (``simhash.unit``), once, not on every inner step (the same
+  values), so :func:`collision_prob` takes the gathered rows
+  ``w_aug[pairs.pos_w]`` and ``w_aug[pairs.neg_w]`` instead of ``w_aug``.
 * The θ gradient comes from autograd; the functions that train enable it
   themselves, so they also run under ``torch.no_grad()``.
 """
@@ -98,14 +98,17 @@ def mine_pairs(q_aug: torch.Tensor, labels: torch.Tensor,
                       neg_mask)
 
 
-def _pair_loss(theta: torch.Tensor, q_aug: torch.Tensor,
-               w_pos: torch.Tensor, w_neg: torch.Tensor,
-               pairs: MinedPairs) -> torch.Tensor:
-    """:func:`iul_loss` on the pair rows ``w_aug[pairs.pos_w]`` and
-    ``w_aug[pairs.neg_w]``, gathered by the caller."""
-    kq = simhash.soft_codes(q_aug, theta)                    # [B, KL]
-    kw_pos = simhash.soft_codes(w_pos, theta)                # [B, NL, KL]
-    kw_neg = simhash.soft_codes(w_neg, theta)                # [B, C, KL]
+def _pair_loss(theta: torch.Tensor, u_q: torch.Tensor, u_pos: torch.Tensor,
+               u_neg: torch.Tensor, pairs: MinedPairs) -> torch.Tensor:
+    """:func:`iul_loss` on the unit rows ``unit(q_aug)``,
+    ``unit(w_aug[pairs.pos_w])`` and ``unit(w_aug[pairs.neg_w])``, made by
+    the caller (they do not depend on theta, so an epoch makes them once a
+    batch, not once an inner step)."""
+    def codes(u):                       # simhash.soft_codes after its unit
+        return torch.tanh(u @ theta.float())
+    kq = codes(u_q)                                          # [B, KL]
+    kw_pos = codes(u_pos)                                    # [B, NL, KL]
+    kw_neg = codes(u_neg)                                    # [B, C, KL]
     ip_pos = torch.einsum("bk,blk->bl", kq, kw_pos)
     ip_neg = torch.einsum("bk,bck->bc", kq, kw_neg)
     # -log σ(x) = -logsigmoid(x); -log(1-σ(x)) = -logsigmoid(-x)
@@ -131,8 +134,9 @@ def _value_and_grad(loss_fn, theta: torch.Tensor
 def iul_loss(theta: torch.Tensor, q_aug: torch.Tensor, w_aug: torch.Tensor,
              pairs: MinedPairs) -> torch.Tensor:
     """Balanced IUL (paper eq. 1), log σ via ``logsigmoid`` for stability."""
-    return _pair_loss(theta, q_aug, w_aug[pairs.pos_w.long()],
-                      w_aug[pairs.neg_w.long()], pairs)
+    unit = simhash.unit
+    return _pair_loss(theta, unit(q_aug), unit(w_aug[pairs.pos_w.long()]),
+                      unit(w_aug[pairs.neg_w.long()]), pairs)
 
 
 def iul_loss_and_grad(theta: torch.Tensor, q_aug: torch.Tensor,
@@ -180,9 +184,10 @@ def iul_train_epoch(theta: torch.Tensor, opt_state, q_aug_all: torch.Tensor,
         q = q_aug_all[idx]
         pairs = mine_pairs(q, labels_all[idx], w_aug, index, t1, t2)
         w_pos, w_neg = w_aug[pairs.pos_w.long()], w_aug[pairs.neg_w.long()]
+        units = [simhash.unit(x) for x in (q, w_pos, w_neg)]
         for _ in range(cfg.iul_inner_steps):
             loss, g = _value_and_grad(
-                lambda th: _pair_loss(th, q, w_pos, w_neg, pairs), theta)
+                lambda th: _pair_loss(th, *units, pairs), theta)
             theta, opt_state = adamw_update(g, opt_state, theta,
                                             lr=cfg.iul_lr)
         cp, cn = collision_prob(theta, q, w_pos, w_neg, pairs, cfg.k_bits,
@@ -256,12 +261,12 @@ def calib_recall(index: LSSIndex, q_aug: torch.Tensor,
 
 def fit_lss(generator: torch.Generator, q_all: torch.Tensor,
             labels_all: torch.Tensor, w: torch.Tensor,
-            b: torch.Tensor | None, cfg: LSSConfig
+            b: torch.Tensor | None, cfg: LSSConfig, verbose: bool = False
             ) -> tuple[LSSIndex, dict]:
     """Full offline preprocessing (paper Algorithm 1, iterated).
 
     Returns (the index of the epoch with the best calibration recall, a
-    history dict of per-epoch metrics).
+    history dict of per-epoch metrics); ``verbose`` prints each epoch's.
     """
     # the WOL and the queries are data here: only theta trains
     w_aug = simhash.augment_neurons(w, b).detach()
@@ -271,7 +276,7 @@ def fit_lss(generator: torch.Generator, q_all: torch.Tensor,
             "recall": []}
     index = build_index(w_aug, state.theta, cfg)
     best_index, best_rec = index, -1.0
-    for _ in range(cfg.iul_epochs):
+    for ep in range(cfg.iul_epochs):
         state, index, info = iul_refit_epoch(state, q_aug, labels_all,
                                              w_aug, index, cfg)
         rec = info["recall"]
@@ -281,4 +286,8 @@ def fit_lss(generator: torch.Generator, q_all: torch.Tensor,
             best_rec, best_index = rec, index
         for k in hist:
             hist[k].append(info[k])
+        if verbose:
+            print(f"[iul] epoch {ep}: loss={info['loss']:.4f} "
+                  f"P+collide={info['p_collide_pos']:.3f} "
+                  f"P-collide={info['p_collide_neg']:.3f} recall={rec:.3f}")
     return best_index, hist

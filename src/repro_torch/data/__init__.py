@@ -1,1 +1,1 @@
-"""Synthetic data generators (numpy)."""
+"""Synthetic data generators (numpy) and the batch pipeline."""

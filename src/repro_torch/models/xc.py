@@ -4,6 +4,14 @@
 Input is sparse BoW, multi-hot token ids padded with -1.  ``embed`` — the
 layer below the WOL, i.e. the LSS query — is separate from
 ``logits``/``loss``, so the LSS index plugs in without touching the model.
+
+The functional face the trainer uses — :func:`init_params` and
+:func:`loss` over a params dict — runs the module's own math through
+``torch.func.functional_call``; :meth:`XCModel.from_params` wraps a
+trained dict for ``embed`` and serving.  The dict's keys are the module's
+parameter names (``embed_table``, ``w_out``, ``b_out``; the JAX package
+calls the first ``embed``).  The embedding's gradient is dense, as JAX's
+``take`` gradient is.
 """
 
 from __future__ import annotations
@@ -12,11 +20,12 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.core.topk import topk_lowest_index
 from repro_torch.device import resolve_device
 
-__all__ = ["XCConfig", "XCModel"]
+__all__ = ["XCConfig", "XCModel", "init_params", "loss"]
 
 
 class XCConfig(NamedTuple):
@@ -62,6 +71,22 @@ class XCModel(nn.Module):
         self.b_out = nn.Parameter(torch.zeros(cfg.output_dim, dtype=cfg.dtype,
                                               device=dev))
 
+    @classmethod
+    def from_params(cls, params: dict[str, torch.Tensor],
+                    cfg: XCConfig | None = None) -> "XCModel":
+        """A model whose parameters share the tensors of ``params`` (no copy,
+        no random draw); ``cfg`` defaults to one sized from the tensors."""
+        embed, w_out = params["embed_table"], params["w_out"]
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model.cfg = cfg or XCConfig("params", input_dim=embed.shape[0],
+                                    hidden=embed.shape[1],
+                                    output_dim=w_out.shape[0],
+                                    dtype=embed.dtype)
+        for name in ("embed_table", "w_out", "b_out"):
+            setattr(model, name, nn.Parameter(params[name].detach()))
+        return model
+
     def embed(self, x_ids: torch.Tensor) -> torch.Tensor:
         """EmbeddingBag(mean) + ReLU over int ``[B, max_in]`` ids, -1 pad:
         the LSS query embedding."""
@@ -81,14 +106,33 @@ class XCModel(nn.Module):
     def loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Multi-label softmax CE (uniform over the true labels).
         ``batch``: ``x [B, max_in]``, ``labels [B, max_labels]``, -1 pad."""
-        lg = self.logits(batch["x"])
-        labels = batch["labels"]
-        mask = labels >= 0
-        logz = torch.logsumexp(lg, dim=-1, keepdim=True)
-        gold = lg.gather(-1, labels.clamp(min=0).long())
-        nll = -(gold - logz) * mask
-        return (nll.sum(-1) / mask.sum(-1).clamp(min=1)).mean()
+        return _multilabel_ce(self.logits(batch["x"]), batch["labels"])
 
     def predict_topk(self, x_ids: torch.Tensor, k: int = 5) -> torch.Tensor:
         """Top-k label ids of the exact full head, ties to the lower id."""
         return topk_lowest_index(self.logits(x_ids), k)[1]
+
+
+def _multilabel_ce(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    mask = labels >= 0
+    logz = torch.logsumexp(lg, dim=-1, keepdim=True)
+    gold = lg.gather(-1, labels.clamp(min=0).long())
+    nll = -(gold - logz) * mask
+    return (nll.sum(-1) / mask.sum(-1).clamp(min=1)).mean()
+
+
+def init_params(generator: torch.Generator, cfg: XCConfig,
+                device: str | torch.device | None = None
+                ) -> dict[str, torch.Tensor]:
+    """The parameters of a fresh :class:`XCModel` as a dict of tensors."""
+    model = XCModel(cfg, generator, device)
+    return {k: p.detach() for k, p in model.named_parameters()}
+
+
+def loss(params: dict[str, torch.Tensor], batch: dict[str, torch.Tensor],
+         cfg: XCConfig) -> torch.Tensor:
+    """:meth:`XCModel.loss` with the parameters in ``params`` (gradients
+    flow to its tensors)."""
+    model = XCModel.from_params(params, cfg)
+    return _multilabel_ce(functional_call(model, params, (batch["x"],)),
+                          batch["labels"])

@@ -1,6 +1,11 @@
-"""Optimizers: AdamW (IUL trains the hyperplanes with it) and the int8 row
-quantization of slab storage."""
+"""Optimizers: AdamW (the trainer and IUL use it), learning-rate schedules,
+and the int8 row quantization of slab storage."""
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm)
+from repro_torch.optim.schedules import (constant_schedule, cosine_schedule,
+                                         linear_warmup_cosine)
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm"]
+__all__ = [
+    "AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
+    "constant_schedule", "cosine_schedule", "linear_warmup_cosine",
+]

@@ -1,5 +1,6 @@
 """AdamW and gradient clipping (counterpart of ``repro.optim.adamw``),
-written as plain functions on a tensor or a (nested) dict of tensors.
+written as plain functions on a tensor or a tree of tensors
+(:mod:`repro_torch.utils.tree`: JAX's leaf order).
 
 The update is the JAX package's formula: fp32 moments, bias correction in
 fp32, and ``p - lr * (update + weight_decay * p)``.  It returns new
@@ -8,9 +9,12 @@ tensors and leaves its arguments as they were, as the JAX version does.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
+                                    tree_unflatten)
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm"]
 
@@ -21,33 +25,20 @@ class AdamWState(NamedTuple):
     nu: Any              # like params
 
 
-def _map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of a tensor or a nested dict of tensors."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
-def _leaves(tree: Any) -> list[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
-
-
 def adamw_init(params: Any, dtype: torch.dtype = torch.float32) -> AdamWState:
-    device = _leaves(params)[0].device
+    device = tree_leaves(params)[0].device
     zeros = lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
-                      mu=_map(zeros, params), nu=_map(zeros, params))
+                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
 def clip_by_global_norm(grads: Any, max_norm: float
                         ) -> tuple[Any, torch.Tensor]:
     """Returns (clipped grads, pre-clip global norm)."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))
+    sq = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
     norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
-    return _map(lambda g: (g * scale).to(g.dtype), grads), norm
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
 
 def adamw_update(grads: Any, state: AdamWState, params: Any, *,
@@ -69,6 +60,8 @@ def adamw_update(grads: Any, state: AdamWState, params: Any, *,
         new_p = p32 - lr * (update + weight_decay * p32)
         return new_p.to(p.dtype), mu, nu
 
-    out = _map(upd, params, grads, state.mu, state.nu)
-    pick = lambda i: _map(lambda o: o[i], out)
+    flat_p, treedef = tree_flatten(params)
+    out = [upd(*xs) for xs in zip(flat_p, *(tree_leaves(t) for t in
+                                            (grads, state.mu, state.nu)))]
+    pick = lambda i: tree_unflatten(treedef, [o[i] for o in out])
     return pick(0), AdamWState(step, pick(1), pick(2))

@@ -1,0 +1,134 @@
+"""Fault-tolerant checkpointing (counterpart of ``repro.train.checkpoint``,
+in its on-disk format, so a checkpoint of either package restores in the
+other).
+
+* ATOMIC: a checkpoint directory appears only complete: it is written to
+  ``<dir>/tmp.<step>``, its manifest fsynced, then renamed to
+  ``<dir>/step_<step>``.
+* SELF-DESCRIBING: ``leaves.npz`` holds leaf ``i`` of the flattened tree
+  as ``leaf_{i:05d}``; ``manifest.json`` holds ``step``, ``n_leaves``,
+  ``shapes``, ``dtypes`` and ``extra`` (the data iterator's state).
+  Leaves are flattened in JAX's order (:mod:`repro_torch.utils.tree`):
+  the port's ``TrainState`` and the JAX package's flatten to the same 11
+  leaves.
+* PLACED ON RESTORE: each leaf goes to the device, and takes the dtype, of
+  the matching leaf of ``like``.
+* ROLLING: ``keep_last`` checkpoints are kept; on resume the newest
+  readable one wins (a torn directory is skipped, not fatal).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import zipfile
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+__all__ = ["save", "all_steps", "latest_step", "restore", "restore_latest"]
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+# what a torn or foreign checkpoint directory raises on restore
+_UNREADABLE = (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile)
+
+
+def _key(i: int) -> str:
+    return f"leaf_{i:05d}"
+
+
+def _to_numpy(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save(ckpt_dir: str, step: int, tree: Any,
+         extra: dict | None = None, keep_last: int = 3) -> str:
+    """Atomically write ``<ckpt_dir>/step_<step>``; prune old ones."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f"tmp.{step}")
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+
+    leaves, _ = tree_flatten(tree)
+    arrays = {_key(i): _to_numpy(v) for i, v in enumerate(leaves)}
+    np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
+    manifest = {
+        "step": step,
+        "n_leaves": len(leaves),
+        "shapes": {k: list(v.shape) for k, v in arrays.items()},
+        "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+        "extra": extra or {},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):      # re-save after resume: overwrite
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+
+    for s in all_steps(ckpt_dir)[:-keep_last]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
+    return final
+
+
+def all_steps(ckpt_dir: str) -> list[int]:
+    """Steps of the complete checkpoints (those with a manifest), sorted."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        m = _STEP_RE.match(name)
+        if m and os.path.exists(os.path.join(ckpt_dir, name, "manifest.json")):
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = all_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
+    """Load ``step_<step>`` into the structure of ``like``: each leaf on
+    the device and in the dtype of ``like``'s leaf.  Returns
+    ``(tree, manifest extra)``; raises if the stored leaves do not match
+    ``like`` in number or shape."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    refs, treedef = tree_flatten(like)
+    if len(refs) != manifest["n_leaves"]:
+        raise ValueError(f"step_{step}: {manifest['n_leaves']} leaves, "
+                         f"expected {len(refs)}")
+    out = []
+    with np.load(os.path.join(path, "leaves.npz")) as data:
+        for i, ref in enumerate(refs):
+            arr = data[_key(i)]
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"step_{step}: {_key(i)} has shape "
+                                 f"{arr.shape}, expected {tuple(ref.shape)}")
+            out.append(torch.from_numpy(arr).to(device=ref.device,
+                                                dtype=ref.dtype))
+    return tree_unflatten(treedef, out), manifest.get("extra", {})
+
+
+def restore_latest(ckpt_dir: str, like: Any) -> tuple[Any, dict, int] | None:
+    """Newest readable checkpoint as ``(tree, extra, step)``, or None.
+    Torn or corrupt directories are skipped."""
+    for step in reversed(all_steps(ckpt_dir)):
+        try:
+            tree, extra = restore(ckpt_dir, step, like)
+            return tree, extra, step
+        except _UNREADABLE as e:
+            print(f"[ckpt] step_{step} unreadable ({e}); falling back")
+    return None

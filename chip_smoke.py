@@ -22,11 +22,24 @@ port's paths at Delicious-200K's full width (random weights from a seed):
   index (``lss_topk``) against the exact full head, with the learned
   index's recall held against a random-SimHash index's;
 * ``preemption``: at ``DELICIOUS.bench`` width, a run that crashes at step
-  25 and resumes from its checkpoint ends where an uninterrupted run ends.
+  25 and resumes from its checkpoint ends where an uninterrupted run ends;
+* the paper's experiments (``repro_torch.benchmarks.paper_tables``) at the
+  reference's full-pass sizes (``BENCH_FAST=0``):
+  ``paper_table1_full``: Table 1's five methods (Full, LSS, SLIDE, PQ,
+  ip-NSW) at Delicious-200K full width on ``train_wol``'s model and index,
+  for its first 512 training rows and for the 512 rows that follow its
+  training rows in the same draw (held out), with the full head's P@k
+  without its bias and the share of labels whose neuron overflowed its
+  bucket; ``paper_table1``: Table 1 for the four settings;
+  ``paper_table2``: the K x L sweep, each cell's ``lss_topk`` and
+  ``simhash_codes`` held against their plain versions and timed beside
+  their bounds; ``paper_fig2``: the per-epoch collision curves.
 
 Each path is driven with the kernels' launch counts set to 0 just before
-it and read just after (``train_wol``: after each of its stages); a kernel
-of the path that was not launched fails the run.
+it and read just after (``train_wol``: after each of its stages; the
+paper phases: each setting, query set or sweep); a kernel of the path
+that was not launched fails the run.  Checks and timings made inside a
+path's run do not count.
 
 Every phase prints one JSON line; a failed check or an exception exits
 non-zero.  The line before the last is the card's name and power limit
@@ -39,6 +52,7 @@ Run from the repository root, on a machine with one CUDA device::
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -52,6 +66,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch import resolve_device
+    from repro_torch.benchmarks import paper_tables
     from repro_torch.configs.paper_datasets import DELICIOUS
     from repro_torch.core.iul import (MinedPairs, fit_lss, iul_init,
                                       iul_loss_and_grad, mine_pairs)
@@ -120,6 +135,10 @@ SEED = 0
 N_REQUESTS, BATCH, TOP_K = 2048, 256, 5
 TIME_ITERS = 20
 STEP_ITERS = 10            # train steps timed after train_wol's run
+PAPER_SETTINGS = ("wiki10-31k", "delicious-200k", "text8", "wiki-text-2")
+TABLE2_CHECKED = 64        # test queries held against the plain version
+TABLE2_CHUNK = 16          # queries a plain call: [16, 50,000, 65] rows
+TABLE1_CHUNK = 256         # queries a plain call: [256, <= 1,000, 97] rows
 
 
 class SmokeFailure(AssertionError):
@@ -190,13 +209,19 @@ def logit_scale(want) -> float:
     return min(1.0, float(real.abs().max())) if real.numel() else 1.0
 
 
-def compare_lss_topk(q_aug, theta, table_ids, w_bucketed, w_scale, top_k):
-    """Kernel vs plain of the same storage, per the parity contract.
-    Returns the margin rows, the checks' numbers and the kernel's output."""
+def compare_lss_topk(q_aug, theta, table_ids, w_bucketed, w_scale, top_k,
+                     chunk=None):
+    """Kernel vs plain of the same storage, per the parity contract; the
+    plain version runs ``chunk`` queries at a time (it gathers ``[B, C, d]``
+    rows).  Returns the margin rows, the checks' numbers and the kernel's
+    output."""
     got = lss_topk(q_aug, theta, table_ids, w_bucketed, top_k=top_k,
                    w_scale=w_scale)                          # the kernel
-    ext = lss_topk_ref(q_aug, theta, table_ids, w_bucketed, top_k=top_k + 1,
-                       w_scale=w_scale)
+    chunk = chunk or q_aug.shape[0]
+    parts = [lss_topk_ref(q_aug[i:i + chunk], theta, table_ids, w_bucketed,
+                          top_k=top_k + 1, w_scale=w_scale)
+             for i in range(0, q_aug.shape[0], chunk)]
+    ext = tuple(torch.cat(p) for p in zip(*parts))
     torch.cuda.synchronize()
     rows = margin_rows(q_aug, theta, MARGIN_EPS)
     assert_ints_equal(got[3], ext[3], rows=rows, what="cand")
@@ -858,6 +883,7 @@ def phase_train_wol(dev, counters):
             "train_wol: recall differs from the run's")
     require(rec_learned >= rec_random,
             f"learned recall {rec_learned} below random {rec_random}")
+    return res
 
 
 def phase_preemption(dev):
@@ -897,6 +923,302 @@ def phase_preemption(dev):
     require(int(got.step) == 40, "preemption: the resumed run's step")
     require(max(errs.values()) <= PREEMPT_ATOL,
             f"preemption: resumed parameters differ by {max(errs.values())}")
+
+
+# ------------------------------------------------- the paper's experiments --
+
+@contextlib.contextmanager
+def uncounted(counters):
+    """Kernel launches inside do not count: a check or a timing made in the
+    middle of a path's run leaves the path's counts as they were."""
+    saved = [fn.launches for fn in counters]
+    try:
+        yield
+    finally:
+        for fn, n in zip(counters, saved):
+            fn.launches = n
+
+
+def reset(counters):
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+
+
+def read(counters):
+    torch.cuda.synchronize()
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def check_rows(rows, m, what):
+    """Table 1's five rows: the methods in order, finite metrics in range,
+    the full head's recall 1 over all m neurons, LSS and SLIDE below m."""
+    require([r.method for r in rows] == ["Full", "LSS", "SLIDE", "PQ",
+                                         "ip-NSW"], f"{what}: methods")
+    for r in rows:
+        vals = (r.p1, r.p5, r.recall, r.sample, r.us_per_query,
+                r.mflop_per_query)
+        require(all(np.isfinite(vals)), f"{what} {r.method}: not finite")
+        require(0 <= r.p1 <= 1 and 0 <= r.p5 <= 1 and 0 <= r.recall <= 1,
+                f"{what} {r.method}: a rate outside [0, 1]")
+        require(r.us_per_query > 0 and r.mflop_per_query > 0,
+                f"{what} {r.method}: time or work not positive")
+    require(rows[0].recall == 1.0 and rows[0].sample == m,
+            f"{what}: the full head")
+    require(0 < rows[1].sample < m and 0 < rows[2].sample < m,
+            f"{what}: LSS or SLIDE scored no neuron or all")
+
+
+def row_dicts(rows, smi):
+    return [{**r._asdict(), "device": smi} for r in rows]
+
+
+def hold_index(index, q_aug, what, checked, chunk):
+    """Outside the counts: ``lss_topk`` on ``index`` against its plain
+    version on the first ``checked`` rows of ``q_aug`` with the hash margin
+    (the plain version ``chunk`` queries a call), and ``simhash_codes`` at
+    the index's K*L against its plain version on every row.  At least 90%
+    of the rows must have the margin."""
+    t = index.tables
+    margin = margin_rows(q_aug, index.theta, MARGIN_EPS)
+    require(margin.mean() >= 0.9,
+            f"{what}: {int((~margin).sum())} rows lack the hash margin")
+    q_chk = q_aug[torch.from_numpy(np.flatnonzero(margin)[:checked])
+                  .to(q_aug.device)].contiguous()
+    _, check, _ = compare_lss_topk(q_chk, index.theta, t.table_ids,
+                                   index.w_bucketed, index.w_scale, TOP_K,
+                                   chunk=chunk)
+    s_rows, s_err = compare_simhash(unit(q_aug), index.theta, t.k_bits,
+                                    t.n_tables)
+    return ({"checked_queries": q_chk.shape[0],
+             "rows_without_margin": int((~margin).sum()), **check},
+            {"excluded_rows": int((~s_rows).sum()), "max_abs_err": s_err})
+
+
+def phase_paper_table1(dev, smi, counters):
+    """Table 1 (``run_setting``) for the paper's four settings at the
+    reference's full-pass sizes: train, fit_lss, then Full, LSS, SLIDE, PQ
+    and ip-NSW on the test queries.  The kernels' counts are set to 0
+    before each setting and read after it.  Each setting's fitted index
+    then holds ``lss_topk`` and ``simhash_codes`` against their plain
+    versions on all its test queries, outside the counts: the LSTM
+    setting's d = 97 and each setting's P are shapes no other phase
+    checks."""
+    rows, seconds, train_seconds, launches, checks = [], {}, {}, {}, {}
+
+    def on_setting(got, index, q_te, train_s):
+        name = got[0].dataset
+        train_seconds[name] = train_s
+        t = index.tables
+        with uncounted(counters):
+            lss_check, s_check = hold_index(
+                index, augment_queries(q_te).contiguous(),
+                f"paper_table1 {name}", q_te.shape[0], TABLE1_CHUNK)
+        checks[name] = {"d": index.theta.shape[0], "K": t.k_bits,
+                        "L": t.n_tables, "P": t.capacity,
+                        "C": t.n_tables * t.capacity, "B": q_te.shape[0],
+                        "lss_topk": lss_check, "simhash_codes": s_check}
+
+    for name in PAPER_SETTINGS:
+        setting = paper_tables.SETTINGS[name]
+        reset(counters)
+        t0 = time.perf_counter()
+        got = paper_tables.run_setting(name, device=dev,
+                                       on_setting=on_setting)
+        launches[name] = read(counters)
+        seconds[name] = time.perf_counter() - t0
+        m = (setting.bench.vocab if setting.kind == "lstm"
+             else setting.bench.output_dim)
+        check_rows(got, m, f"paper_table1 {name}")
+        require(name in checks, f"paper_table1 {name}: index not checked")
+        rows += row_dicts(got, smi)
+        for kernel in ("simhash_codes_cuda", "lss_topk_cuda"):
+            require(launches[name][kernel] > 0,
+                    f"{kernel} was not launched by Table 1's {name}")
+    emit({"phase": "paper_table1", "fast": paper_tables.FAST, "rows": rows,
+          "seconds": seconds, "train_seconds": train_seconds,
+          "launches": launches, "kernel_checks": checks})
+
+
+def phase_paper_table2(dev, smi, counters):
+    """Table 2 (``table2_kl_sweep``): K in {4, 6, 8} x L in {1, 10, 50} on
+    the Delicious stand-in.  At each cell, outside the counts: the fitted
+    index's ``lss_topk`` against its plain version on the first
+    TABLE2_CHECKED test queries with the hash margin (the plain version in
+    chunks of TABLE2_CHUNK), the layout the kernel takes, its device ms on
+    all test queries beside its bound, and ``simhash_codes`` at K*L against
+    its plain version."""
+    cells = []
+    t_prev = [time.perf_counter()]
+
+    def on_cell(row, index, q_te):
+        fit_s = time.perf_counter() - t_prev[0]
+        with uncounted(counters):
+            cells.append(table2_cell(row, index, q_te, fit_s, smi))
+        t_prev[0] = time.perf_counter()
+
+    reset(counters)
+    t0 = time.perf_counter()
+    rows = paper_tables.table2_kl_sweep(device=dev, on_cell=on_cell)
+    launches = read(counters)
+    seconds = time.perf_counter() - t0
+    for cell in cells:
+        emit(cell)
+    shapes = {(c["K"], c["L"]) for c in cells}
+    require(len(rows) == len(cells) == 9
+            and shapes == {(k, l) for k in (4, 6, 8) for l in (1, 10, 50)},
+            "paper_table2: not the 9 cells")
+    for r in rows:
+        require(0 <= r["P@1"] <= 1 and 0 <= r["P@5"] <= 1
+                and r["sample"] > 0, f"paper_table2 {r}: out of range")
+    emit({"phase": "paper_table2", "fast": paper_tables.FAST, "rows": rows,
+          "seconds": seconds, "launches": launches, "device": smi})
+    for kernel in ("simhash_codes_cuda", "lss_topk_cuda"):
+        require(launches[kernel] > 0, f"{kernel} was not launched by "
+                "Table 2")
+
+
+def table2_cell(row, index, q_te, fit_s, smi):
+    t = index.tables
+    d = index.theta.shape[0]
+    shape = (d, t.k_bits, t.n_tables, t.capacity)
+    lay = lss_topk_ops.lss_topk_layout(*shape)
+    lib = lss_topk_ops._library()
+    require(lay.smem == lib.lss_topk_smem_bytes(*shape, 0)
+            and lay.scratch == lib.lss_topk_scratch_bytes(*shape, 0),
+            "smem or scratch formula drifted")
+    require(lay.smem <= _build.SMEM_LIMIT_BYTES, "paper_table2: smem")
+    q_aug = augment_queries(q_te).contiguous()
+    check, s_check = hold_index(index, q_aug, f"paper_table2 K={t.k_bits} "
+                                f"L={t.n_tables}", TABLE2_CHECKED,
+                                TABLE2_CHUNK)
+    args = (q_aug, index.theta, t.table_ids, index.w_bucketed)
+    got = lss_topk(*args, top_k=TOP_K)
+    ms = time_ms(lambda: lss_topk(*args, top_k=TOP_K))
+    b_ms, b_by, nbytes, flops = lss_topk_bound_ms(q_aug, index, got[3],
+                                                  TOP_K)
+    code_args = (unit(q_aug), index.theta, t.k_bits, t.n_tables)
+    s_ms = time_ms(lambda: simhash_codes(*code_args))
+    s_b, s_by, _, _ = simhash_bound_ms(*q_aug.shape, t.k_bits, t.n_tables)
+    plan = simhash_codes_plan(*q_aug.shape, t.k_bits, t.n_tables,
+                              _build.sm_count(q_aug.device))
+    return {"phase": "paper_table2_cell", **row, "P": t.capacity,
+            "C": t.n_tables * t.capacity, "B": q_aug.shape[0], "d": d,
+            "fit_and_eval_seconds": fit_s,
+            "lss_topk": {"smem_bytes": lay.smem,
+                         "scratch_bytes_per_query": lay.scratch,
+                         "scratch_bytes": q_aug.shape[0] * lay.scratch,
+                         "blocks_per_sm":
+                             lss_topk_ops.lss_topk_blocks_per_sm(*shape),
+                         **check, "ms": ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": nbytes, "flops": flops},
+            "simhash_codes": {"K*L": t.k_bits * t.n_tables,
+                              "stride": plan.stride, "smem_bytes": plan.smem,
+                              **s_check, "ms": s_ms,
+                              "bound_ms": s_b, "bound_by": s_by},
+            "device": smi}
+
+
+def phase_paper_fig2(dev, counters):
+    """Fig. 2 (``fig2_collision_curves``): per-epoch IUL loss, P+ and P-
+    collision rates and recall on the Delicious stand-in."""
+    reset(counters)
+    t0 = time.perf_counter()
+    hist = paper_tables.fig2_collision_curves(device=dev)
+    launches = read(counters)
+    epochs = paper_tables.SETTINGS["delicious-200k"].bench_lss.iul_epochs
+    emit({"phase": "paper_fig2", "fast": paper_tables.FAST, **hist,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    require(all(len(v) == epochs and np.isfinite(v).all()
+                for v in map(np.asarray, hist.values())),
+            "paper_fig2: curves")
+    require(launches["simhash_codes_cuda"] > 0,
+            "simhash_codes was not launched by Fig. 2")
+
+
+def phase_paper_table1_full(dev, smi, res, counters):
+    """Table 1's five methods at Delicious-200K full width, on the model
+    and index ``train_wol`` trained and fitted (nothing is trained again),
+    for two query sets: the first 512 training rows (as the reference
+    measures) and the 512 rows that follow the training rows in the same
+    ``xc_dataset`` draw (held out).  Then the full head's P@k without its
+    bias, and the share of each set's labels whose neuron overflowed its
+    bucket in the trained index: the two causes of LSS's gap."""
+    cfg, lss, data, n_test = (res["config"], res["lss_config"], res["data"],
+                              res["n_test"])
+    model, index = res["model"], res["index"]
+    w, b = model.w_out.float(), model.b_out.float()
+    n_train = data.x.shape[0]
+    more = xc_dataset(11, n_train + n_test, cfg.input_dim, cfg.output_dim,
+                      n_topics=128, max_in=cfg.max_in,
+                      max_labels=cfg.max_labels)
+    require(np.array_equal(more.x[:n_train], data.x)
+            and np.array_equal(more.labels[:n_train], data.labels),
+            "paper_table1_full: the longer draw does not extend train_wol's")
+
+    def embed(x):
+        return torch.cat([model.embed(torch.from_numpy(x[i:i + BATCH])
+                                      .to(dev))
+                          for i in range(0, x.shape[0], BATCH)])
+
+    def labels(y):
+        return torch.from_numpy(y).to(dev)
+
+    sets = {"training_rows": (embed(data.x[:n_test]),
+                              labels(data.labels[:n_test]),
+                              f"rows 0-{n_test - 1} (trained on)"),
+            "held_out": (embed(more.x[n_train:]),
+                         labels(more.labels[n_train:]),
+                         f"rows {n_train}-{n_train + n_test - 1} "
+                         "(never trained on)")}
+    t = index.tables
+    in_index = torch.zeros(w.shape[0], dtype=torch.bool, device=dev)
+    in_index[t.table_ids[t.table_ids >= 0].long()] = True
+    out, nobias, overflow = {}, {}, {}
+    for name, (q, lab, rows_desc) in sets.items():
+        reset(counters)
+        t0 = time.perf_counter()
+        rows, _, _ = paper_tables.eval_methods(DELICIOUS.name, lss, w, b, q,
+                                               lab, index=index)
+        launches = read(counters)
+        seconds = time.perf_counter() - t0
+        check_rows(rows, w.shape[0], f"paper_table1_full {name}")
+        for kernel in ("simhash_codes_cuda", "lss_topk_cuda"):
+            require(launches[kernel] > 0, f"{kernel} was not launched by "
+                    f"paper_table1_full {name}")
+        batches = q.shape[0] / BATCH
+        out[name] = {"queries": rows_desc, "rows": row_dicts(rows, smi),
+                     "seconds": seconds, "launches": launches,
+                     "launches_per_256_queries":
+                         {k: v / batches for k, v in launches.items()}}
+        ids = topk_lowest_index(q @ w.T, TOP_K)[1]
+        nobias[name] = {"P@1": float(precision_at_k(ids, lab, 1)),
+                        "P@5": float(precision_at_k(ids, lab, 5)),
+                        "with_bias_P@1": rows[0].p1}
+        valid = lab >= 0
+        dropped = valid & ~in_index[lab.clamp(min=0).long()]
+        overflow[name] = {"labels": int(valid.sum()),
+                          "overflowed": int(dropped.sum()),
+                          "share": float(dropped.sum() / valid.sum()),
+                          "lss_label_recall": rows[1].recall}
+        with uncounted(counters):
+            q_aug = augment_queries(q[:BATCH])
+            margin, check, _ = compare_lss_topk(
+                q_aug, index.theta, t.table_ids, index.w_bucketed,
+                index.w_scale, TOP_K)
+            out[name]["lss_topk_check"] = {
+                "excluded_rows": int((~margin).sum()), **check}
+            require((~margin).sum() < MAX_EXCLUDED_FRAC * BATCH,
+                    "paper_table1_full: rows lack the hash margin")
+    emit({"phase": "paper_table1_full", "model": cfg.name,
+          "input_dim": cfg.input_dim, "hidden": cfg.hidden,
+          "output_dim": cfg.output_dim, "K": t.k_bits, "L": t.n_tables,
+          "P": t.capacity, "n_dropped": int(t.n_dropped.sum()),
+          "fast": paper_tables.FAST, **out, "device": smi})
+    emit({"phase": "paper_table1_full_nobias",
+          "what": "full head P@k of q @ w.T (no bias)", **nobias})
+    emit({"phase": "paper_table1_full_overflow",
+          "what": "labels whose neuron overflowed its bucket", **overflow})
 
 
 def bucket_logits_entry(index, q_aug0, launches):
@@ -991,8 +1313,16 @@ def main() -> int:
     u_launches, q_aug0 = phase_unfused_path(dev, model, learned, data,
                                             counters)
     line["kernels"].append(bucket_logits_entry(learned, q_aug0, u_launches))
-    phase_train_wol(dev, counters)
+    res = phase_train_wol(dev, counters)
+    # the paper's experiments at the reference's full-pass sizes
+    # (BENCH_FAST=0)
+    paper_tables.FAST = False
+    phase_paper_table1_full(dev, smi, res, counters)
+    del res
     phase_preemption(dev)
+    phase_paper_table1(dev, smi, counters)
+    phase_paper_table2(dev, smi, counters)
+    phase_paper_fig2(dev, counters)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(line)
     print(smi, flush=True)

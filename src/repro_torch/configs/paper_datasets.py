@@ -1,24 +1,25 @@
-"""The paper's extreme-classification settings (counterpart of
+"""The paper's own four evaluation settings (counterpart of
 ``repro.configs.paper_datasets``; Table 4 / Appendix B).
 
 ``full`` configs carry the paper's dimensions; ``bench`` configs are the
 JAX package's reduced stand-ins, and ``bench_lss`` their IUL settings.
-``WIKITEXT2`` waits for the port of ``models/lstm.py``.
 """
 
 from typing import NamedTuple
 
 from repro_torch.core.lss import LSSConfig
+from repro_torch.models.lstm import LSTMConfig
 from repro_torch.models.xc import XCConfig
 
-__all__ = ["PaperSetting", "WIKI10", "DELICIOUS", "TEXT8", "ALL"]
+__all__ = ["PaperSetting", "WIKI10", "DELICIOUS", "TEXT8", "WIKITEXT2",
+           "ALL"]
 
 
 class PaperSetting(NamedTuple):
     name: str
-    kind: str               # xc | word2vec
-    full: XCConfig
-    bench: XCConfig
+    kind: str               # xc | word2vec | lstm
+    full: XCConfig | LSTMConfig
+    bench: XCConfig | LSTMConfig
     lss: LSSConfig
     bench_lss: LSSConfig
 
@@ -56,4 +57,14 @@ TEXT8 = PaperSetting(
                         iul_inner_steps=10, iul_lr=0.02),
 )
 
-ALL = {s.name: s for s in (WIKI10, DELICIOUS, TEXT8)}
+WIKITEXT2 = PaperSetting(
+    name="wiki-text-2", kind="lstm",
+    full=LSTMConfig("wiki-text-2", vocab=50000, hidden=200, n_layers=2),
+    bench=LSTMConfig("wiki-text-2-bench", vocab=8000, hidden=96,
+                     n_layers=2),
+    lss=LSSConfig(k_bits=8, n_tables=1),
+    bench_lss=LSSConfig(k_bits=5, n_tables=1, iul_epochs=8,
+                        iul_inner_steps=10, iul_lr=0.02),
+)
+
+ALL = {s.name: s for s in (WIKI10, DELICIOUS, TEXT8, WIKITEXT2)}

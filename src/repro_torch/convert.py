@@ -16,10 +16,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.xc import XCModel
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.train.trainer import TrainState
+from repro_torch.utils.tree import tree_map
 
 __all__ = ["tensor_from_numpy", "xc_params_from_numpy",
-           "lss_index_from_numpy", "adamw_state_from_numpy",
-           "train_state_from_numpy"]
+           "lstm_params_from_numpy", "lss_index_from_numpy",
+           "adamw_state_from_numpy", "train_state_from_numpy"]
 
 # JAX's XC parameter names -> the port's (the rest are the same)
 _XC_NAMES = {"embed": "embed_table"}
@@ -48,6 +49,16 @@ def xc_params_from_numpy(params: dict, device: str | torch.device | None = None
     """An :class:`XCModel` holding the JAX ``xc.init_params`` dict
     (``embed``, ``w_out``, ``b_out``), sized from the arrays."""
     return XCModel.from_params(_params(params, resolve_device(device)))
+
+
+def lstm_params_from_numpy(params: dict,
+                           device: str | torch.device | None = None
+                           ) -> dict:
+    """The JAX ``lstm.init_params`` dict (``embed``, ``layers``: ``wx``,
+    ``wh``, ``b``; ``w_out``, ``b_out``) as the port's: the same names and
+    nesting, each array a tensor on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), params)
 
 
 def lss_index_from_numpy(theta, table_ids, n_dropped, w_bucketed, w_scale,

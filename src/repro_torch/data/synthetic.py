@@ -1,6 +1,6 @@
-"""Synthetic extreme-classification data (counterpart of
-``repro.data.synthetic.xc_dataset``; numpy only, so the same seed gives
-the same arrays in both packages)."""
+"""Synthetic extreme-classification and language-model data (counterpart
+of ``repro.data.synthetic``'s ``xc_dataset`` and ``lm_dataset``; numpy
+only, so the same seed gives the same arrays in both packages)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["XCData", "xc_dataset"]
+__all__ = ["XCData", "xc_dataset", "lm_dataset"]
 
 
 class XCData(NamedTuple):
@@ -62,3 +62,25 @@ def xc_dataset(seed: int, n_samples: int, input_dim: int, output_dim: int,
         x[i, :len(toks[:max_in])] = toks[:max_in]
         y[i, :len(labs)] = labs[:max_labels]
     return XCData(x, y, n_topics)
+
+
+def lm_dataset(seed: int, n_tokens: int, vocab: int, seq_len: int,
+               n_topics: int = 32) -> np.ndarray:
+    """Topic-switching zipf LM stream -> [n_seqs, seq_len] int32."""
+    rng = np.random.default_rng(seed)
+    tok_topic = rng.integers(0, n_topics, size=vocab)
+    by_topic = [np.where(tok_topic == t)[0] for t in range(n_topics)]
+    n_seqs = n_tokens // seq_len
+    out = np.zeros((n_seqs, seq_len), np.int32)
+    for i in range(n_seqs):
+        t = rng.integers(0, n_topics)
+        pos = 0
+        while pos < seq_len:
+            run = int(rng.integers(8, 32))
+            pool = by_topic[t]
+            ranks = rng.zipf(1.3, size=run) % max(len(pool), 1)
+            out[i, pos:pos + run] = pool[ranks][: seq_len - pos]
+            pos += run
+            if rng.random() < 0.2:
+                t = rng.integers(0, n_topics)
+    return out

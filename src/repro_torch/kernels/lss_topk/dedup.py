@@ -36,8 +36,8 @@ __all__ = [
 ]
 
 DEDUP_CHOICES = ("quadratic", "bitonic")
-DEDUP_ENV_VAR = "REPRO_TORCH_LSS_DEDUP"
-AUTO_THRESHOLD_ENV_VAR = "REPRO_TORCH_LSS_DEDUP_AUTO_C"
+DEDUP_ENV_VAR = "REPRO_LSS_DEDUP"
+AUTO_THRESHOLD_ENV_VAR = "REPRO_LSS_DEDUP_AUTO_C"
 DEFAULT_AUTO_THRESHOLD = 256
 
 INT32_MAX = 2 ** 31 - 1      # sort sentinel for padded slots

@@ -4,7 +4,7 @@
 ``fp32`` (4 B/element), ``bf16`` (2 B, a plain cast) or ``int8`` (1 B +
 one fp32 scale per neuron row, ``optim.compression.quantize_int8_rows``),
 selected by the registry strategy ``lss_topk.slab_dtype`` (explicit >
-process override > ``$REPRO_TORCH_LSS_SLAB_DTYPE`` > auto = fp32) and
+process override > ``$REPRO_LSS_SLAB_DTYPE`` > auto = fp32) and
 resolved once, at ``core.lss.build_index`` time.  The plain version widens
 the whole slab tensor before its product; the CUDA kernel widens each row
 in registers with the same elementwise op.
@@ -25,7 +25,7 @@ __all__ = [
 ]
 
 SLAB_DTYPE_CHOICES = ("fp32", "bf16", "int8")
-SLAB_DTYPE_ENV_VAR = "REPRO_TORCH_LSS_SLAB_DTYPE"
+SLAB_DTYPE_ENV_VAR = "REPRO_LSS_SLAB_DTYPE"
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 _NAMES = {v: k for k, v in _DTYPES.items()}

@@ -1,1 +1,2 @@
-"""Models: the paper's extreme-classification model."""
+"""Models: the paper's extreme-classification model and its RNN language
+model."""

@@ -12,7 +12,9 @@ other).
   the port's ``TrainState`` and the JAX package's flatten to the same 11
   leaves.
 * PLACED ON RESTORE: each leaf goes to the device, and takes the dtype, of
-  the matching leaf of ``like``.
+  the matching leaf of ``like``.  bfloat16 leaves are stored as JAX stores
+  them: their bits as 2-byte void (``|V2``), named ``bfloat16`` in the
+  manifest.
 * ROLLING: ``keep_last`` checkpoints are kept; on resume the newest
   readable one wins (a torn directory is skipped, not fatal).
 """
@@ -42,10 +44,29 @@ def _key(i: int) -> str:
     return f"leaf_{i:05d}"
 
 
+# JAX writes a bfloat16 leaf as 2-byte void (numpy has no bfloat16), and
+# its manifest names the dtype "bfloat16"; the port writes the same
+_BF16_STORED = np.dtype("V2")
+
+
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_STORED)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_STORED else str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A stored leaf as a tensor; 2-byte void leaves are bfloat16 bits."""
+    if arr.dtype == _BF16_STORED:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save(ckpt_dir: str, step: int, tree: Any,
@@ -65,7 +86,7 @@ def save(ckpt_dir: str, step: int, tree: Any,
         "step": step,
         "n_leaves": len(leaves),
         "shapes": {k: list(v.shape) for k, v in arrays.items()},
-        "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
         "extra": extra or {},
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -117,8 +138,8 @@ def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"step_{step}: {_key(i)} has shape "
                                  f"{arr.shape}, expected {tuple(ref.shape)}")
-            out.append(torch.from_numpy(arr).to(device=ref.device,
-                                                dtype=ref.dtype))
+            out.append(_from_numpy(arr).to(device=ref.device,
+                                           dtype=ref.dtype))
     return tree_unflatten(treedef, out), manifest.get("extra", {})
 
 

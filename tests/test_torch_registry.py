@@ -125,9 +125,13 @@ def test_import_without_jax_or_reference_package():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
         "import repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                                               'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'repro_torch.benchmarks.paper_tables' in names\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -137,14 +141,17 @@ def test_import_without_jax_or_reference_package():
     assert res.stdout.strip() == "ok"
 
 
-IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
-                       re.MULTILINE)
+# the JAX package, its top-level benchmarks package, or JAX itself
+IMPORT_RE = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|repro|benchmarks)(?:\.|\s|$)",
+    re.MULTILINE)
 
 
 def test_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "src/repro_torch/benchmarks/baselines.py" in files
     for f in files:
         hits = IMPORT_RE.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

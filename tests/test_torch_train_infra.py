@@ -5,7 +5,8 @@ with the JAX package on the same numpy inputs.
 Tolerances:
 * schedules: rtol 1e-6 (fp32 ``cos`` of the two libraries may differ in
   the last bit);
-* batches, checkpoint leaves: exact;
+* batches, checkpoint leaves (bf16 ones bit for bit), blockwise int8
+  quantization against the JAX package's: exact;
 * one train step: loss, gradient norm and lr rtol 1e-5; gradients rtol
   1e-5 and atol 1e-8 (the sums run in other orders), zero in the same
   elements, and elsewhere within 1% of their own size; parameters after
@@ -22,6 +23,7 @@ Tolerances:
 """
 
 import gc
+import json
 import os
 import weakref
 
@@ -36,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.data.pipeline import ShardedBatchIterator as JIterator  # noqa: E402
 from repro.models import xc as jxc  # noqa: E402
 from repro.optim import schedules as jsched  # noqa: E402
+from repro.optim import compression as jcompression  # noqa: E402
 from repro.train import checkpoint as jckpt  # noqa: E402
 from repro.train import trainer as jtrainer  # noqa: E402
 from repro_torch.convert import train_state_from_numpy  # noqa: E402
@@ -43,6 +46,8 @@ from repro_torch.data.pipeline import ShardedBatchIterator  # noqa: E402
 from repro_torch.data.synthetic import xc_dataset  # noqa: E402
 from repro_torch.models import xc  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
+from repro_torch.optim.compression import (dequantize_int8,  # noqa: E402
+                                           quantize_int8)
 from repro_torch.testing.parity import assert_close  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.trainer import (TrainConfig, Trainer,  # noqa: E402
@@ -196,6 +201,82 @@ def test_torn_checkpoint_skipped(tmp_path):
     # a directory still being written (tmp.<n>) is never a checkpoint
     os.makedirs(os.path.join(d, "tmp.3"))
     assert ckpt.all_steps(d) == [1, 2]
+
+
+def test_bf16_checkpoint_roundtrip(tmp_path):
+    d = str(tmp_path / "ck")
+    x = torch.randn(7, 3, generator=_gen(5)).to(torch.bfloat16)
+    tree = {"w": x, "s": torch.arange(4.0)}
+    ckpt.save(d, 3, tree)
+    stored = np.load(os.path.join(d, "step_3", "leaves.npz"))["leaf_00001"]
+    assert stored.dtype == np.dtype("V2")            # JAX's layout
+    got, _ = ckpt.restore(d, 3, tree_map(torch.zeros_like, tree))
+    assert got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), x.view(torch.int16))
+    assert torch.equal(got["s"], tree["s"])
+    # a float32 ``like`` takes the bf16 values, widened
+    wide, _ = ckpt.restore(d, 3, {"w": torch.zeros(7, 3),
+                                  "s": torch.zeros(4)})
+    assert wide["w"].dtype == torch.float32
+    assert torch.equal(wide["w"], x.float())
+
+
+def test_bf16_checkpoint_from_jax_restores_in_port(tmp_path):
+    d = str(tmp_path / "ck")
+    x = np.random.default_rng(0).normal(size=(5, 4)).astype(np.float32)
+    jtree = {"a": jnp.asarray(x).astype(jnp.bfloat16),
+             "b": {"c": jnp.arange(3.0)}}
+    jckpt.save(d, 9, jtree, extra={"data": {"step": 9, "seed": 1}})
+    like = {"a": torch.zeros(5, 4, dtype=torch.bfloat16),
+            "b": {"c": torch.zeros(3)}}
+    got, extra, step = ckpt.restore_latest(d, like)
+    assert step == 9 and extra == {"data": {"step": 9, "seed": 1}}
+    want = np.asarray(jtree["a"]).view(np.int16)
+    np.testing.assert_array_equal(got["a"].view(torch.int16).numpy(), want)
+    np.testing.assert_array_equal(got["b"]["c"].numpy(), np.arange(3.0))
+    # saved again by the port: the same stored leaves and manifest dtypes
+    # as the JAX package wrote
+    ckpt.save(str(tmp_path / "port"), 9, got)
+    manifests, leaves = [], []
+    for root in (d, str(tmp_path / "port")):
+        with open(os.path.join(root, "step_9", "manifest.json")) as f:
+            manifests.append(json.load(f)["dtypes"])
+        with np.load(os.path.join(root, "step_9", "leaves.npz")) as z:
+            leaves.append({k: z[k] for k in z.files})
+    assert manifests[0] == manifests[1]
+    assert manifests[1]["leaf_00000"] == "bfloat16"
+    for k, v in leaves[0].items():
+        assert leaves[1][k].dtype == v.dtype
+        assert leaves[1][k].tobytes() == v.tobytes()
+
+
+def test_int8_quant_error_bound():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1000,)).astype(np.float32)) * 3
+    q, s = quantize_int8(x)
+    back = dequantize_int8(q, s, x.shape, torch.float32)
+    err = (back - x).abs().numpy()
+    # blockwise symmetric int8: |err| <= scale/2 per block
+    bound = np.repeat(s.numpy(), 256)[:1000] * 0.5 + 1e-6
+    assert (err <= bound).all()
+
+
+@pytest.mark.parametrize("shape", [(1000,), (3, 7, 29), (256,)])
+def test_int8_blockwise_matches_jax(shape):
+    """Exact: the same fp32 max, divide and round-half-even."""
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=shape) * 2).astype(np.float32)
+    x.reshape(-1)[:256] = 0.0                   # an all-zero block
+    jq, js = jcompression.quantize_int8(jnp.asarray(x))
+    q, s = quantize_int8(torch.from_numpy(x))
+    assert q.dtype == torch.int8 and tuple(q.shape) == jq.shape
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    back = dequantize_int8(q, s, shape, torch.bfloat16)
+    jback = jcompression.dequantize_int8(jq, js, shape, jnp.bfloat16)
+    assert back.shape == shape and back.dtype == torch.bfloat16
+    np.testing.assert_array_equal(back.view(torch.int16).numpy(),
+                                  np.asarray(jback).view(np.int16))
 
 
 def test_preemption_resume_identical(tmp_path):

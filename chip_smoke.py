@@ -30,7 +30,12 @@ port's paths at Delicious-200K's full width (random weights from a seed):
   for its first 512 training rows and for the 512 rows that follow its
   training rows in the same draw (held out), with the full head's P@k
   without its bias and the share of labels whose neuron overflowed its
-  bucket; ``paper_table1``: Table 1 for the four settings;
+  bucket; ``serve_engine``: the serving stack on the same model and
+  index, an ``Engine`` whose every (head, bucket) step is a captured CUDA
+  graph, its results held against ``lss_forward`` and the exact full
+  head, the recall auditor, and the ``AsyncRuntime`` staged and open
+  loop, with the Prometheus text and a chrome trace;
+  ``paper_table1``: Table 1 for the four settings;
   ``paper_table2``: the K x L sweep, each cell's ``lss_topk`` and
   ``simhash_codes`` held against their plain versions and timed beside
   their bounds; ``paper_fig2``: the per-epoch collision curves.
@@ -39,7 +44,9 @@ Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after (``train_wol``: after each of its stages; the
 paper phases: each setting, query set or sweep); a kernel of the path
 that was not launched fails the run.  Checks and timings made inside a
-path's run do not count.
+path's run do not count.  ``serve_engine``'s steps are CUDA graphs, whose
+replays call no wrapper: its wrappers count each step's warm-up and
+capture, and ``torch.profiler`` counts the kernels the replays ran.
 
 Every phase prints one JSON line; a failed check or an exception exits
 non-zero.  The line before the last is the card's name and power limit
@@ -72,8 +79,8 @@ try:
                                       iul_loss_and_grad, mine_pairs)
     from repro_torch.core.lss import (LSSConfig, avg_sample_size,
                                       bucket_slab_inputs, build_index,
-                                      label_recall, lss_forward, lss_predict,
-                                      precision_at_k, retrieve,
+                                      dedup_mask, label_recall, lss_forward,
+                                      lss_predict, precision_at_k, retrieve,
                                       sparse_logits_bucketed,
                                       sparse_logits_gather)
     from repro_torch.core.simhash import (augment_neurons, augment_queries,
@@ -95,6 +102,11 @@ try:
     from repro_torch.kernels.simhash_codes.ops import (simhash_codes_cuda,
                                                        simhash_codes_plan)
     from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
+    from repro_torch.obs import assert_quiescent, trace_export
+    from repro_torch.obs.audit import RecallAuditor
+    from repro_torch.obs.export import prometheus_text
+    from repro_torch.serve import AsyncRuntime, Engine
+    from repro_torch.serve.runtime import submit_open_loop
     from repro_torch.models import xc
     from repro_torch.models.xc import XCModel
     from repro_torch.testing.parity import (assert_close, assert_ints_equal,
@@ -102,6 +114,7 @@ try:
                                             margin_rows)
     from repro_torch.train.trainer import TrainConfig, Trainer
     from repro_torch.utils.tree import tree_leaves
+    from tools.check_metrics import parse_exposition
 except ImportError as e:
     sys.exit(f"chip_smoke: {e} (run it from the repository root)")
 
@@ -139,6 +152,8 @@ PAPER_SETTINGS = ("wiki10-31k", "delicious-200k", "text8", "wiki-text-2")
 TABLE2_CHECKED = 64        # test queries held against the plain version
 TABLE2_CHUNK = 16          # queries a plain call: [16, 50,000, 65] rows
 TABLE1_CHUNK = 256         # queries a plain call: [256, <= 1,000, 97] rows
+SERVE_REQUESTS = 2048      # serve_engine: training rows served
+SERVE_QPS = 5000.0         # serve_engine: the open-loop Poisson rate
 
 
 class SmokeFailure(AssertionError):
@@ -1221,6 +1236,302 @@ def phase_paper_table1_full(dev, smi, res, counters):
           "what": "labels whose neuron overflowed its bucket", **overflow})
 
 
+# ----------------------------------------------------- the serving engine --
+
+def serve_pattern(eng, x, labels, seed, max_group=48, head=None):
+    """Submit the rows in ragged groups of 1 to ``max_group - 1``
+    (``np.random.default_rng(seed)``, as the JAX serving example draws
+    them), flushing after each group.  Returns the results in submit order
+    and the group sizes."""
+    rng = np.random.default_rng(seed)
+    res, sizes, i = [], [], 0
+    while i < x.shape[0]:
+        n = min(int(rng.integers(1, max_group)), x.shape[0] - i)
+        for j in range(i, i + n):
+            eng.submit({"x": x[j]}, labels=labels[j])
+        res += eng.flush(head)
+        sizes.append(n)
+        i += n
+    return res, sizes
+
+
+def stack_results(res):
+    return (np.stack([r.logits for r in res]),
+            np.stack([r.ids for r in res]))
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def device_kernel_count(prof, name: str) -> int:
+    """The device kernels in a profiler window whose name holds ``name``
+    (kernels inside a CUDA graph's replay are listed one by one)."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name in e.name)
+
+
+def host_ms(fn, iters: int = TIME_ITERS) -> float:
+    """Median host-clock ms of ``fn`` from a synchronised start to a
+    synchronised end."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def runtime_run(eng, x, labels, qps, start=True):
+    """``x``'s rows through a fresh AsyncRuntime: paced at ``qps`` (0: a
+    burst), or staged before the workers start (``start=False``).
+    Returns the results and the runtime's stats."""
+    rt = AsyncRuntime(eng, max_queue=4 * x.shape[0], policy="block",
+                      start=start)
+    reqs = [{"x": row} for row in x]
+    futs, _ = submit_open_loop(rt, reqs, qps, seed=0, labels=labels)
+    rt.start()
+    rt.drain(timeout=600.0)
+    res = [f.result(timeout=60.0) for f in futs]
+    stats = rt.stats()
+    rt.close(timeout=60.0)
+    return res, stats
+
+
+def phase_serve_engine(dev, smi, model, index, lss_cfg, data, counters):
+    """The serving stack on the trained model and index: an ``Engine``
+    with the default buckets and the recall auditor at rate 1.0, every
+    (head, bucket) step captured as a CUDA graph first.  Then
+    ``SERVE_REQUESTS`` training rows through ``submit``/``flush`` in
+    ragged groups (LSS head; the counted run is the builds and this pass,
+    which runs under ``torch.profiler``: one ``lss_topk`` kernel on the
+    device a group; each result bit for bit a direct ``lss_forward``; the
+    metrics' integer counts those of the same rows' candidates), the same
+    groups through the full head (against ``topk_lowest_index(q @ w.T +
+    b)`` per the parity contract), the auditor's recall against the full
+    head's, a second arrival pattern (no new build), host ms per group at
+    each bucket (graph replay against the eager head), the async runtime
+    staged and open loop, and the Prometheus text and trace.  Returns the
+    profiler's count of ``lss_topk`` kernels in the LSS pass."""
+    t_phase = time.perf_counter()
+    n = SERVE_REQUESTS
+    x, labels = data.x[:n], data.labels[:n]
+    w, b = model.w_out.float(), model.b_out.float()
+    eng = Engine(lambda batch: model.embed(batch["x"]), w, b, lss_cfg,
+                 top_k=TOP_K, head="lss", audit_rate=1.0)
+    # a backlog that holds a whole pass: no sampled group is shed, so the
+    # auditor's counts cover every LSS group of the pass
+    eng.auditor.close()
+    eng.auditor = RecallAuditor(eng, 1.0, queue_cap=n)
+    eng._set_index(index)
+    kinds, buckets = ("lss", "full"), eng.batcher.buckets
+    all_steps = {(k, bk): 1 for k in kinds for bk in buckets}
+
+    # the counted run: build every step (eager warm-up, capture, one
+    # replay), then the LSS pass under the profiler.  A wrapper counts the
+    # launches it makes -- a step's warm-up and its capture -- and the
+    # profiler counts the kernels the graph replays ran on the device.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()           # reserved memory: the builds' own
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    n_log = len(registry.dispatch_log())
+    reserved_by_step = {}
+    reset(counters)
+    t0 = time.perf_counter()
+    for kind in kinds:
+        for bk in buckets:
+            r0 = torch.cuda.memory_reserved()
+            eng._step(kind, bk)({"x": x[:bk]})
+            torch.cuda.synchronize()
+            reserved_by_step[f"{kind}:{bk}"] = \
+                (torch.cuda.memory_reserved() - r0) / 2 ** 20
+    build_s = time.perf_counter() - t0
+    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    require(eng.compile_counts == all_steps
+            and all(eng._step(k, bk).captured for k, bk in all_steps),
+            "serve_engine: not one captured step per (head, bucket)")
+    dispatches = sorted({f"{op}:{impl}"
+                         for op, impl in registry.dispatch_log()[n_log:]})
+    emit({"phase": "serve_engine_build", "heads": kinds,
+          "buckets": buckets, "steps": len(all_steps),
+          "seconds": build_s,
+          "allocated_mb_before": mem0[0] / 2 ** 20,
+          "allocated_mb_after": mem1[0] / 2 ** 20,
+          "reserved_mb_before": mem0[1] / 2 ** 20,
+          "reserved_mb_after": mem1[1] / 2 ** 20,
+          "reserved_delta_mb_by_step": reserved_by_step,
+          "dispatches": dispatches, "device": smi})
+    require("lss_topk:cuda" in dispatches,
+            "serve_engine: the builds' dispatch log shows no lss_topk:cuda")
+
+    # the score path, LSS head
+    eng.reset_metrics()
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lss_res, sizes = serve_pattern(eng, x, labels, 0)
+        torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    launches = read(counters)
+    m_lss = eng.metrics()
+    device_launches = device_kernel_count(prof, "lss_topk")
+    eng.auditor.drain(timeout=600.0)
+    audit = eng.auditor.snapshot()
+    audit_gauge = eng.auditor._g_recall.value
+    require([r.rid for r in lss_res] == list(range(n)), "serve_engine: rids")
+    require(launches == {"simhash_codes_cuda": 0,
+                         "lss_topk_cuda": 2 * len(buckets),
+                         "bucket_logits_cuda": 0},
+            f"serve_engine: wrapper launches {launches}, not a warm-up and "
+            f"a capture of lss_topk for each of {len(buckets)} LSS steps")
+    require(device_launches == len(sizes),
+            f"serve_engine: the profiler saw {device_launches} lss_topk "
+            f"kernels for {len(sizes)} groups")
+    lss_lg, lss_ids = stack_results(lss_res)
+
+    with uncounted(counters):
+        q = torch.cat([model.embed(torch.from_numpy(x[i:i + BATCH]).to(dev))
+                       for i in range(0, n, BATCH)])
+        ref = [lss_forward(q[i:i + BATCH], index, None, TOP_K)
+               for i in range(0, n, BATCH)]
+        ref_lg = torch.cat([r.top_logits for r in ref]).cpu().numpy()
+        ref_ids = torch.cat([r.top_ids for r in ref]).cpu().numpy()
+        cand = torch.cat([r.cand_ids for r in ref])
+        n_sample = int(dedup_mask(cand).sum())
+        lab = torch.from_numpy(labels).to(dev)
+        valid = lab >= 0
+        found = (lab[:, :, None] == cand[:, None, :]).any(-1) & valid
+        hits, n_labels = int(found.sum()), int(valid.sum())
+        require(same_bits(lss_lg, ref_lg) and same_bits(lss_ids, ref_ids),
+                "serve_engine: LSS results differ from lss_forward")
+        require(n_sample == int(torch.cat([r.sample_size for r in ref])
+                                .sum()), "serve_engine: sample sizes")
+        require(m_lss.avg_sample_size == n_sample / n
+                and m_lss.label_recall == hits / n_labels,
+                "serve_engine: metrics differ from the candidates' counts")
+
+        # the full head, the same groups
+        full_res, _ = serve_pattern(eng, x, labels, 0, head="full")
+        full_lg, full_ids = stack_results(full_res)
+        want = [topk_lowest_index(q[i:i + BATCH] @ w.T + b, TOP_K + 1)
+                for i in range(0, n, BATCH)]
+        want_lg = torch.cat([v for v, _ in want]).cpu().numpy()
+        want_ids = torch.cat([i for _, i in want]).cpu().numpy()
+        scale = logit_scale(torch.from_numpy(want_lg[:, :TOP_K]))
+        full_err = assert_close(full_lg, want_lg[:, :TOP_K],
+                                rtol=LOGIT_RTOL, atol=LOGIT_ATOL * scale,
+                                what="serve_engine full-head logits")
+        full_checked = assert_topk_ids_equal(
+            full_ids, want_ids[:, :TOP_K], want_lg[:, :TOP_K],
+            TIE_TOL * scale, next_logit=want_lg[:, TOP_K],
+            what="serve_engine full-head ids")
+
+        # the auditor re-ranked every LSS group through the full head's
+        # step of the same bucket: its counts are the full pass's
+        hit = (full_ids[:, :, None] == lss_ids[:, None, :]).any(-1)
+        require(audit == (int(hit.sum()), hit.size)
+                and audit_gauge == hit.sum() / hit.size,
+                f"serve_engine: auditor {audit} != full head "
+                f"{(int(hit.sum()), hit.size)}")
+
+        # a second arrival pattern: every step is reused
+        _, sizes2 = serve_pattern(eng, x, labels, 1, max_group=129)
+        require(eng.compile_counts == all_steps,
+                f"serve_engine: builds {eng.compile_counts}")
+        eng.auditor.drain(timeout=600.0)
+
+        # host ms per group: graph replay against the eager head
+        timing = []
+        for kind in kinds:
+            head_fn = eng._head(kind)
+            for bk in buckets:
+                xb = x[:bk]
+                step = eng._step(kind, bk)
+                timing.append({
+                    "head": kind, "bucket": bk,
+                    "graph_ms": host_ms(lambda: step({"x": xb})),
+                    "eager_ms": host_ms(lambda: head_fn(model.embed(
+                        torch.from_numpy(xb).to(dev))))})
+    emit({"phase": "serve_engine", "model": model.cfg.name,
+          "output_dim": w.shape[0], "requests": n,
+          "rows": f"training rows 0-{n - 1}", "groups": len(sizes),
+          "group_sizes": {"min": min(sizes), "max": max(sizes)},
+          "seconds_under_profiler": score_s, "metrics": m_lss._asdict(),
+          "wrapper_launches": launches,
+          "profiler_lss_topk_kernels": device_launches,
+          "lss_vs_lss_forward": "bit-identical",
+          "sample_total": n_sample, "label_hits": hits,
+          "labels": n_labels, "full_head_max_abs_err": full_err,
+          "full_head_ids_checked": full_checked,
+          "full_head_ids": int(full_ids.size),
+          "audit": {"hits": audit[0], "total": audit[1],
+                    "recall_at_k": audit[0] / audit[1],
+                    "dropped": eng.auditor.reg.counter(
+                        "lss_audit_dropped_total").value},
+          "second_pattern_groups": len(sizes2),
+          "compile_counts": {f"{k}:{bk}": v
+                             for (k, bk), v in eng.compile_counts.items()},
+          "device": smi})
+    emit({"phase": "serve_engine_timing", "what": "host-clock ms a group, "
+          "synchronised, median of 20: the step (copy in, replay, clone) "
+          "against the eager embed + head", "rows": timing, "device": smi})
+
+    # the async runtime: staged, then open loop, then a burst
+    eng.auditor.drain(timeout=600.0)
+    for j in range(n):                       # flush's grouping: 128s
+        eng.submit({"x": x[j]}, labels=labels[j])
+    sync = stack_results(eng.flush())
+    require(same_bits(sync[0], lss_lg) and same_bits(sync[1], lss_ids),
+            "serve_engine: a row's result depends on its group")
+    runs = {"paused": runtime_run(eng, x, labels, 0.0, start=False),
+            "open_loop": runtime_run(eng, x, labels, SERVE_QPS),
+            "burst": runtime_run(eng, x, labels, 0.0)}
+    # the same open loop without the auditor: what auditing every chunk
+    # costs the runtime's latency
+    auditor, eng.auditor = eng.auditor, None
+    runs["open_loop_no_audit"] = runtime_run(eng, x, labels, SERVE_QPS)
+    eng.auditor = auditor
+    stats = {}
+    for name, (res, s) in runs.items():
+        lg, ids = stack_results(res)
+        require(same_bits(lg, lss_lg) and same_bits(ids, lss_ids),
+                f"serve_engine: the {name} runtime's results differ from "
+                f"the flush's")
+        require(s.n_completed == n and s.n_shed_queue == 0
+                and s.n_shed_deadline == 0, f"serve_engine: {name} shed")
+        stats[name] = s._asdict()
+    emit({"phase": "serve_engine_runtime", "requests": n,
+          "open_loop_qps": SERVE_QPS, "results": "bit-identical to flush",
+          **stats, "device": smi})
+
+    # observability: the Prometheus text of every registry, the trace
+    eng.auditor.drain(timeout=600.0)
+    text = prometheus_text()
+    families, errors = parse_exposition(text)
+    require(not errors, f"serve_engine: exposition errors {errors[:3]}")
+    require({"lss_audit_recall_at_k", "engine_request_latency_seconds",
+             "runtime_request_latency_seconds"} <= set(families),
+            "serve_engine: metric families missing")
+    eng.auditor.close()
+    with tempfile.TemporaryDirectory(prefix="serve_trace_") as tmp:
+        trace = trace_export(str(Path(tmp) / "trace.json"))
+        trace_bytes = (Path(tmp) / "trace.json").stat().st_size
+    assert_quiescent()
+    print(text, end="", flush=True)
+    emit({"phase": "serve_engine_obs", "families": len(families),
+          "lines": text.count("\n"), "trace_events":
+          len(trace["traceEvents"]), "trace_bytes": trace_bytes,
+          "seconds": time.perf_counter() - t_phase})
+    return device_launches
+
+
 def bucket_logits_entry(index, q_aug0, launches):
     """bucket_logits at the unfused path's shapes (its first batch)."""
     w_flat, slab_ids = slab_inputs(q_aug0, index)
@@ -1318,6 +1629,12 @@ def main() -> int:
     # (BENCH_FAST=0)
     paper_tables.FAST = False
     phase_paper_table1_full(dev, smi, res, counters)
+    serve_launches = phase_serve_engine(dev, smi, res["model"], res["index"],
+                                        res["lss_config"], res["data"],
+                                        counters)
+    line["kernels"][1]["launches_by_path"] = {
+        "main_path": line["kernels"][1]["launches"],
+        "serve_engine": serve_launches}
     del res
     phase_preemption(dev)
     phase_paper_table1(dev, smi, counters)

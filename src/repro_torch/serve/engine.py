@@ -1,0 +1,518 @@
+"""Unified batched serving engine for WOL inference (counterpart of
+``repro.serve.engine``'s score path).
+
+One :class:`Engine` owns:
+
+  * the frozen model body (``embed_fn``) and WOL parameters ``w, b``,
+  * a fitted :class:`LSSIndex`, held in an index epoch,
+  * a pluggable head per request — ``full`` | ``lss`` — see
+    ``serve.heads``,
+  * a continuous micro-batcher that coalesces submitted requests into
+    fixed bucketed batch shapes (``serve.batcher``) so arrival patterns
+    never trigger a new build: exactly one step per (head, bucket) pair,
+    build counts exposed via ``compile_counts``.  On the card a step is
+    a captured CUDA graph (``serve.step``), on the CPU an eager call,
+  * first-class serving metrics — p50/p95/p99 latency, throughput, avg
+    sample size, label recall — computed from the SAME retrieval pass
+    that produced the ranking (no second ``retrieve`` call).
+
+Request flow::
+
+    engine.submit(x, labels=...)   # enqueue one example
+    engine.flush()                 # coalesce -> bucketed steps
+    engine.metrics()               # ServeMetrics snapshot
+
+``WOLServer`` remains as a thin compatibility wrapper.  Requests are
+pytrees (``{"x": ids}``) of numpy arrays or tensors, as in JAX.  Still
+to come: the decode path (``decode_logits``, ``LMDecoder``), online
+refresh (``warm_epoch``, ``swap_index``, epoch pins) and the
+vocab-sharded and multi-process heads.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core import simhash
+from repro_torch.core.iul import fit_lss
+from repro_torch.core.lss import LSSConfig, LSSIndex, build_index
+from repro_torch.device import HostOutput
+from repro_torch.obs.audit import RecallAuditor
+from repro_torch.serve.batcher import DEFAULT_BUCKETS, MicroBatcher
+from repro_torch.serve.heads import (HEAD_KINDS, HeadOutput, make_full_head,
+                                     make_lss_head)
+from repro_torch.serve.step import Step
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+__all__ = ["Engine", "ServeMetrics", "RankResult", "WOLServer",
+           "host_numpy", "stack_rows"]
+
+
+class ServeMetrics(NamedTuple):
+    """Serving metrics window.  The first three fields keep the legacy
+    (n_requests, wall_s, avg_sample_size) positional layout."""
+
+    n_requests: int
+    wall_s: float
+    avg_sample_size: float
+    throughput_rps: float
+    latency_p50_ms: float
+    latency_p95_ms: float
+    latency_p99_ms: float
+    label_recall: float          # nan until labels are supplied
+    n_compiles: int
+
+
+class RankResult(NamedTuple):
+    """Per-request result handed back by ``flush``."""
+
+    rid: int
+    logits: np.ndarray           # [k]
+    ids: np.ndarray              # [k]
+
+
+class _Pending(NamedTuple):
+    rid: int
+    x: Any                       # example pytree (no batch dim, numpy)
+    labels: np.ndarray | None    # [NL] int, -1 padded
+    t_submit: float
+
+
+class _IndexEpoch:
+    """One fitted-index generation and everything derived from it: its
+    LSS heads and steps.  ``_set_index`` prepares a new generation and
+    flips ``Engine.index_epoch`` to it in O(1) under the lock, dropping
+    the others (no decode session pins one yet)."""
+
+    __slots__ = ("epoch", "index", "heads", "steps")
+
+    def __init__(self, epoch: int, index: LSSIndex):
+        self.epoch = epoch
+        self.index = index
+        self.heads: dict[str, Callable] = {}      # lss kinds only
+        self.steps: dict[tuple[str, int], Step] = {}
+
+
+def host_numpy(leaf) -> np.ndarray:
+    """A request leaf as a numpy array (a tensor is copied to the host)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def stack_rows(xs: list) -> Any:
+    """Stack per-request pytrees (no batch dim) into one batch pytree."""
+    return tree_map(lambda *rows: np.stack(rows), xs[0], *xs[1:])
+
+
+def _as_label_row(labels) -> np.ndarray | None:
+    if labels is None:
+        return None
+    return np.atleast_1d(np.asarray(host_numpy(labels), np.int32))
+
+
+def _pad_to_bucket(x, bucket: int):
+    """Pad axis 0 of every leaf to ``bucket`` rows with zeros (numpy
+    leaves on the host, tensors on their device)."""
+    def pad(leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return MicroBatcher.pad_rows(leaf, bucket)
+        n = leaf.shape[0]
+        if n == bucket:
+            return leaf
+        return torch.cat([leaf, leaf.new_zeros((bucket - n,)
+                                               + tuple(leaf.shape[1:]))])
+    return tree_map(pad, x)
+
+
+class Engine:
+    """Batched WOL serving with a pluggable head.
+
+    ``embed_fn(batch) -> [B, d]`` maps a request batch (a pytree of
+    tensors on the engine's device) to query embeddings; pass None when
+    requests already ARE embeddings.  ``w [m, d]``, ``b [m]`` are the
+    WOL parameters; the engine runs on their device, and the kernel
+    registry picks each op's implementation by that device.
+
+    Thread safety: every mutation of engine state — the pending request
+    queue, finished results, the metrics window, and the step table —
+    happens under ``self.lock`` (an RLock), so one Engine can be shared
+    by the AsyncRuntime's worker threads and any number of user threads.
+    A step replay holds only the step's own lock.
+    """
+
+    def __init__(self, embed_fn: Callable | None, w: torch.Tensor,
+                 b: torch.Tensor | None = None,
+                 lss_cfg: LSSConfig = LSSConfig(), *,
+                 top_k: int = 5, head: str = "lss",
+                 buckets=DEFAULT_BUCKETS,
+                 audit_rate: float | None = None):
+        if head == "lss-sharded":
+            raise ValueError(
+                "head 'lss-sharded' (the vocab-sharded index) comes with "
+                "the port's multi-GPU sharding slice; use 'full' or 'lss'")
+        if head not in HEAD_KINDS:
+            raise ValueError(f"head must be one of {HEAD_KINDS}, got {head}")
+        self.embed_fn = embed_fn
+        self.w = w.detach().float()
+        self.device = self.w.device
+        self.b = (torch.zeros(w.shape[0], device=self.device) if b is None
+                  else b.detach().float())
+        self.lss_cfg = lss_cfg
+        self.top_k = top_k
+        self.default_head = head
+        self.batcher = MicroBatcher(buckets)
+        self._w_aug_cache: torch.Tensor | None = None
+        # epoch id -> _IndexEpoch; index_epoch names the SERVING one
+        self._epochs: dict[int, _IndexEpoch] = {}
+        self.index_epoch: int = 0     # 0 = no fitted index yet
+        self._epoch_seq: int = 0
+        self._full_head: Callable | None = None
+        # steps: the index-free full-head steps here, LSS steps in their
+        # _IndexEpoch.  One build-count table spans all epochs.
+        self._steps: dict[tuple[str, int], Step] = {}
+        self.compile_counts: dict[tuple[str, int], int] = {}
+        self.calib: tuple | None = None   # (q, labels) refs from last fit
+        self._queue: list[_Pending] = []
+        self._results: list[RankResult] = []
+        self._next_rid = 0
+        self.lock = threading.RLock()
+        self.obs = obs.MetricsRegistry(scope_prefix="engine")
+        self._h_lat = self.obs.histogram(
+            "engine_request_latency_seconds",
+            "submit -> result per ranked request")
+        self.obs.collect(self._collect_gauges)
+        if audit_rate is None:
+            audit_rate = obs.audit_rate_from_env(0.0)
+        self.auditor = None
+        if audit_rate > 0:
+            # offers are gated per request group on kind != "full"
+            self.auditor = RecallAuditor(self, audit_rate)
+        self.reset_metrics()
+
+    @property
+    def _w_aug(self) -> torch.Tensor:
+        """Bias-augmented neurons, built on first LSS use."""
+        if self._w_aug_cache is None:
+            self._w_aug_cache = simhash.augment_neurons(self.w, self.b)
+        return self._w_aug_cache
+
+    # ------------------------------------------------- offline fitting --
+    def fit(self, generator: torch.Generator, calib_batches: list, labels,
+            verbose: bool = False) -> dict:
+        """Paper Algorithm 1: embed the calibration batches through the
+        frozen model body, then IUL-train the hyperplanes."""
+        if self.embed_fn is None:
+            raise ValueError("fit() needs an embed_fn; use "
+                             "fit_from_queries() when requests are raw "
+                             "embeddings")
+        with torch.no_grad():
+            q = torch.cat([self.embed_fn(bb) for bb in calib_batches])
+        return self.fit_from_queries(generator, q, labels, verbose=verbose)
+
+    def fit_from_queries(self, generator: torch.Generator, q: torch.Tensor,
+                         labels: torch.Tensor, verbose: bool = False
+                         ) -> dict:
+        index, hist = fit_lss(generator, q, labels, self.w, self.b,
+                              self.lss_cfg, verbose=verbose)
+        self.calib = (q, labels)
+        self._set_index(index)
+        return hist
+
+    def fit_random(self, generator: torch.Generator) -> None:
+        """SimHash init without IUL (the SLIDE-style baseline)."""
+        theta = simhash.init_hyperplanes(generator, self._w_aug.shape[1],
+                                         self.lss_cfg.k_bits,
+                                         self.lss_cfg.n_tables,
+                                         device=self.device)
+        self._set_index(build_index(self._w_aug, theta, self.lss_cfg))
+
+    # --------------------------------------------------- index lifecycle --
+    @property
+    def index(self) -> LSSIndex | None:
+        """The SERVING epoch's index (None before any fit)."""
+        st = self._epochs.get(self.index_epoch)
+        return None if st is None else st.index
+
+    def _epoch_state(self) -> _IndexEpoch:
+        st = self._epochs.get(self.index_epoch)
+        if st is None:
+            raise ValueError("LSS head needs a fitted index: call fit()/"
+                             "fit_random()")
+        return st
+
+    def _set_index(self, index: LSSIndex) -> None:
+        """Install ``index`` as the serving epoch immediately."""
+        self._swap_prepared(self.prepare_epoch(index))
+
+    def prepare_epoch(self, index: LSSIndex) -> int:
+        """Register ``index`` as a new, not-yet-serving epoch; its heads
+        and steps are built lazily."""
+        with self.lock:
+            self._epoch_seq += 1
+            e = self._epoch_seq
+            self._epochs[e] = _IndexEpoch(e, index)
+            return e
+
+    def _swap_prepared(self, epoch: int) -> int:
+        """Flip the serving epoch to ``epoch`` in O(1) under the lock and
+        drop every other epoch: a chunk that fetched its step before the
+        flip runs the old generation to completion."""
+        with self.lock:
+            st = self._epochs[epoch]
+            old = self.index_epoch
+            self.index_epoch = st.epoch
+            for k in [k for k in self._epochs if k != st.epoch]:
+                del self._epochs[k]
+        obs.event("index_swap", epoch=epoch, prev=old)
+        return epoch
+
+    # ------------------------------------------------------ head lookup --
+    def _head(self, kind: str, st: _IndexEpoch | None = None) -> Callable:
+        if kind not in HEAD_KINDS:
+            raise ValueError(f"unknown head {kind!r}")
+        if kind == "full":
+            if self._full_head is None:
+                self._full_head = make_full_head(self.w, self.b,
+                                                 self.top_k)
+            return self._full_head
+        st = st if st is not None else self._epoch_state()
+        if kind not in st.heads:
+            w_aug = None if st.index.w_bucketed is not None \
+                else self._w_aug
+            st.heads[kind] = make_lss_head(st.index, w_aug, self.top_k)
+        return st.heads[kind]
+
+    # ------------------------------------------------------------ steps --
+    def _step(self, kind: str, bucket: int) -> Step:
+        """One step per (head, bucket) per index epoch: a CUDA graph on
+        the card, captured at its first call; eager on the CPU.  The
+        build count is bumped once per build, as a JAX trace bumps it."""
+        key = (kind, bucket)
+        # lock-free hot path: a GIL-atomic dict read, so the runtime's
+        # dispatcher never stalls behind a user thread's flush()
+        table = self._steps if kind == "full" else self._epoch_state().steps
+        step = table.get(key)
+        if step is not None:
+            return step
+        with self.lock:
+            if key not in table:
+                head = self._head(kind, None if kind == "full"
+                                  else self._epoch_state())
+                embed = self.embed_fn
+
+                def fn(x):
+                    return head(embed(x) if embed is not None else x)
+
+                def on_build():
+                    with self.lock:
+                        self.compile_counts[key] = \
+                            self.compile_counts.get(key, 0) + 1
+
+                table[key] = Step(fn, self.device, on_build, self.lock)
+            return table[key]
+
+    # ------------------------------------------------------- score path --
+    def rank(self, x, head: str | None = None, labels=None,
+             record: bool = True) -> HeadOutput:
+        """Rank one already-batched request group (rows = requests).
+
+        Pads to the bucket, runs the (head, bucket) step, slices back to
+        the true row count; returns tensors on the engine's device.
+        ``labels`` (int [B, NL], -1 padded) feed the recall metric.
+        """
+        kind = head or self.default_head
+        n = tree_leaves(x)[0].shape[0]
+        t0 = time.perf_counter()
+        outs = []
+        for chunk in self.batcher.plan(n):
+            part = tree_map(
+                lambda leaf: leaf[chunk.start:chunk.start + chunk.size], x)
+            o = self._step(kind, chunk.bucket)(
+                _pad_to_bucket(part, chunk.bucket))
+            outs.append(tree_map(lambda leaf: leaf[:chunk.size], o))
+        out = outs[0] if len(outs) == 1 else HeadOutput(
+            *(None if any(leaf is None for leaf in ls) else torch.cat(ls)
+              for ls in zip(*outs)))
+        if record:
+            host = HostOutput(out).wait()
+            wall = time.perf_counter() - t0
+            self._record(host, n, wall, [wall] * n, labels)
+            if self.auditor is not None and kind != "full":
+                self.auditor.offer(x, host.ids)
+        return out
+
+    # --------------------------------------------------- request queue --
+    def submit(self, x, labels=None) -> int:
+        """Enqueue one example (leaves WITHOUT the batch dim).  Returns a
+        request id; auto-flushes once a full max bucket is waiting."""
+        x = tree_map(host_numpy, x)
+        with self.lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            self._queue.append(_Pending(rid, x, _as_label_row(labels),
+                                        time.perf_counter()))
+            if len(self._queue) >= self.batcher.max_bucket:
+                self._flush_ready()
+            return rid
+
+    def submit_batch(self, xb, labels=None) -> list[int]:
+        """Enqueue every row of a batched pytree."""
+        xb_np = tree_map(host_numpy, xb)         # one device->host copy
+        n = tree_leaves(xb_np)[0].shape[0]
+        lab = None if labels is None else host_numpy(labels)
+        with self.lock:                          # rids stay contiguous
+            return [self.submit(tree_map(lambda leaf: leaf[i], xb_np),
+                                None if lab is None else lab[i])
+                    for i in range(n)]
+
+    def _flush_ready(self) -> None:
+        while len(self._queue) >= self.batcher.max_bucket:
+            group = self._queue[:self.batcher.max_bucket]
+            del self._queue[:self.batcher.max_bucket]
+            self._results.extend(self._run_group(group))
+
+    def flush(self, head: str | None = None) -> list[RankResult]:
+        """Drain the queue through bucketed steps; return all finished
+        results (including auto-flushed ones) in submit order."""
+        with self.lock:
+            while self._queue:
+                take = min(len(self._queue), self.batcher.max_bucket)
+                group = self._queue[:take]
+                del self._queue[:take]
+                self._results.extend(self._run_group(group, head))
+            out = sorted(self._results, key=lambda r: r.rid)
+            self._results = []
+            return out
+
+    def _run_group(self, group: list[_Pending],
+                   head: str | None = None) -> list[RankResult]:
+        kind = head or self.default_head
+        bucket = self.batcher.bucket_for(len(group))
+        x = stack_rows([g.x for g in group])
+        padded = MicroBatcher.pad_rows(x, bucket)
+        t0 = time.perf_counter()
+        # waits on this group's own copy event, not the whole stream
+        out = HostOutput(self._step(kind, bucket)(padded)).wait()
+        t1 = time.perf_counter()
+        n = len(group)
+        lats = [t1 - g.t_submit for g in group]
+        labels = self._stack_labels([g.labels for g in group])
+        self._record(out, n, t1 - t0, lats, labels)
+        if self.auditor is not None and kind != "full":
+            self.auditor.offer(x, out.ids[:n])
+        return [RankResult(g.rid, out.logits[i], out.ids[i])
+                for i, g in enumerate(group)]
+
+    @staticmethod
+    def _stack_labels(rows) -> np.ndarray | None:
+        if all(r is None for r in rows):
+            return None
+        width = max(1 if r is None else r.shape[0] for r in rows)
+        out = np.full((len(rows), width), -1, np.int32)
+        for i, r in enumerate(rows):
+            if r is not None:
+                out[i, :r.shape[0]] = r
+        return out
+
+    # ----------------------------------------------------------- metrics --
+    def reset_metrics(self) -> None:
+        """Start a fresh metrics window.  Pending request results are NOT
+        metrics and survive (they belong to the next ``flush``)."""
+        with self.lock:
+            self._n = 0
+            self._wall = 0.0
+            self._h_lat.reset()
+            self._sample_sum = 0
+            self._recall_hit = 0
+            self._recall_tot = 0
+
+    def _record(self, out: HeadOutput, n: int, wall: float,
+                lats: list[float], labels) -> None:
+        """Fold one group into the window; ``out`` holds numpy arrays of
+        at least ``n`` rows (``HostOutput.wait``)."""
+        sample = int(np.sum(out.sample_size[:n], dtype=np.int64))
+        hit = tot = 0
+        if labels is not None:
+            lab = np.asarray(host_numpy(labels))[:n]
+            if lab.ndim == 1:                 # one label per request
+                lab = lab[:, None]
+            pool = out.cand_ids if out.cand_ids is not None else out.ids
+            found = (lab[:, :, None] == pool[:n, None, :]).any(-1)
+            valid = lab >= 0
+            hit, tot = int(np.sum(found & valid)), int(np.sum(valid))
+        with self.lock:
+            self._n += n
+            self._wall += wall
+            for v in lats:
+                self._h_lat.record(v)
+            self._sample_sum += sample
+            self._recall_hit += hit
+            self._recall_tot += tot
+
+    def _collect_gauges(self, reg) -> None:
+        """Exporter hook: surface the ServeMetrics window as gauges at
+        snapshot time (no double bookkeeping on the record path)."""
+        m = self.metrics()
+        reg.gauge("engine_requests_total").set(m.n_requests)
+        reg.gauge("engine_throughput_rps").set(m.throughput_rps)
+        reg.gauge("engine_avg_sample_size").set(m.avg_sample_size)
+        reg.gauge("engine_label_recall").set(m.label_recall)
+        reg.gauge("engine_compiles_total").set(m.n_compiles)
+
+    def metrics(self) -> ServeMetrics:
+        # quantiles come off the histogram's own bounded reservoir, not
+        # under self.lock — a metrics() poll never stalls flush()
+        p50, p95, p99 = self._h_lat.quantile((50, 95, 99))
+        with self.lock:
+            return ServeMetrics(
+                n_requests=self._n,
+                wall_s=self._wall,
+                avg_sample_size=self._sample_sum / max(self._n, 1),
+                throughput_rps=self._n / self._wall if self._wall else 0.0,
+                latency_p50_ms=float(p50 * 1e3),
+                latency_p95_ms=float(p95 * 1e3),
+                latency_p99_ms=float(p99 * 1e3),
+                label_recall=(self._recall_hit / self._recall_tot
+                              if self._recall_tot else math.nan),
+                n_compiles=sum(self.compile_counts.values()),
+            )
+
+
+# ================================================= compatibility wrapper ==
+
+class WOLServer:
+    """Legacy facade: one wide output layer, full or LSS head; all work
+    happens in the unified :class:`Engine`."""
+
+    def __init__(self, embed_fn: Callable, w: torch.Tensor,
+                 b: torch.Tensor | None, cfg: LSSConfig, top_k: int = 5):
+        self.engine = Engine(embed_fn, w, b, cfg, top_k=top_k)
+
+    @property
+    def index(self):
+        return self.engine.index
+
+    def fit(self, generator: torch.Generator, calib_batches: list[dict],
+            labels: torch.Tensor, verbose: bool = False) -> dict:
+        return self.engine.fit(generator, calib_batches, labels,
+                               verbose=verbose)
+
+    def serve(self, batches: list[dict], use_lss: bool = True
+              ) -> tuple[list, ServeMetrics]:
+        if use_lss and self.engine.index is None:
+            raise ValueError("fit() first")
+        self.engine.reset_metrics()
+        kind = "lss" if use_lss else "full"
+        out = []
+        for b in batches:
+            ho = self.engine.rank(b, head=kind)
+            out.append((ho.logits, ho.ids))
+        return out, self.engine.metrics()

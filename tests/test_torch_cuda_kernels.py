@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card,
+and the serving engine's steps captured as CUDA graphs.
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use) and
 skip without one.  They import no JAX, so they run where only PyTorch is
@@ -218,3 +219,79 @@ def test_bucket_logits_bf16_slabs_off_16_bytes(cuda, d):
     want = bucket_logits_ref(q, w, ids)
     torch.cuda.synchronize()
     assert_close(got, want, rtol=1e-4, atol=1e-4, what="bucket_logits")
+
+
+# ------------------------------------------- the engine's CUDA-graph steps --
+
+def _serving_engine(cuda, buckets=(8,)):
+    from repro_torch.serve import Engine
+    g = torch.Generator(cuda).manual_seed(3)
+    w = torch.randn(4096, 32, generator=g, device=cuda)
+    eng = Engine(None, w, None, LSSConfig(k_bits=5, n_tables=2), top_k=5,
+                 head="lss", buckets=buckets)
+    eng.fit_random(g)
+    return eng
+
+
+@pytest.mark.parametrize("kind", ["lss", "full"])
+def test_captured_step_equals_eager_step(cuda, kind):
+    """A (head, bucket) step replayed from its CUDA graph gives the bits
+    of the same step run eagerly.  The lss_topk wrapper counts the build's
+    two launches (the warm-up's and the one captured) and no replay; the
+    profiler sees one lss_topk kernel on the device a replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = _serving_engine(cuda)
+    x = torch.randn(8, 32, generator=torch.Generator(cuda).manual_seed(4),
+                    device=cuda)
+    step = eng._step(kind, 8)
+    with torch.no_grad():
+        eager = step.fn(x)
+    per_call = 1 if kind == "lss" else 0
+    before = lss_topk_cuda.launches
+    first = step(x)                         # warm-up, capture, replay
+    assert step.captured and eng.compile_counts[(kind, 8)] == 1
+    assert lss_topk_cuda.launches - before == 2 * per_call
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = [step(x.cpu().numpy()) for _ in range(3)]
+        torch.cuda.synchronize()
+    assert lss_topk_cuda.launches - before == 2 * per_call
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "lss_topk" in e.name)
+    assert kernels == 3 * per_call
+    for out in (first, *again):
+        for got, want in zip(out, eager):
+            if want is not None:
+                assert torch.equal(got, want)
+    assert eng.compile_counts[(kind, 8)] == 1
+
+
+def test_two_threads_replaying_one_step_get_their_own_rows(cuda):
+    import threading
+    eng = _serving_engine(cuda)
+    step = eng._step("lss", 8)
+    g = torch.Generator(cuda).manual_seed(5)
+    xs = [torch.randn(8, 32, generator=g, device=cuda) for _ in range(2)]
+    with torch.no_grad():
+        want = [step.fn(x) for x in xs]
+    step(xs[0])                             # capture once
+    got = [[], []]
+
+    def replay(i):
+        for _ in range(50):
+            got[i].append(step(xs[i].cpu().numpy()))
+
+    threads = [threading.Thread(target=replay, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120.0)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert len(got[i]) == 50
+        for out in got[i]:
+            assert torch.equal(out.ids, want[i].ids)
+            assert torch.equal(out.logits, want[i].logits)

@@ -38,15 +38,26 @@ port's paths at Delicious-200K's full width (random weights from a seed):
   ``paper_table1``: Table 1 for the four settings;
   ``paper_table2``: the K x L sweep, each cell's ``lss_topk`` and
   ``simhash_codes`` held against their plain versions and timed beside
-  their bounds; ``paper_fig2``: the per-epoch collision curves.
+  their bounds; ``paper_fig2``: the per-epoch collision curves;
+* ``decode``: streaming decode at Qwen2-0.5B's full width (24 layers,
+  d_model 896, the 151,936-wide tied head; random bf16 weights):
+  ``LMDecoder.fit_lss`` on the LM head (``simhash_codes``; K = 10, L = 1,
+  P = 304), 16 prompts of 100-500 tokens, 128 new tokens each, through
+  blocking ``generate`` (dense KV pool), the paged KV pool (prefix-shared
+  prompts skip prefill) and the AsyncRuntime's decode kind, with the full
+  head and the LSS head (``lss_topk``, replayed in the fused step's CUDA
+  graph); every run's tokens bit for bit the blocking ones, a replay the
+  eager step's, the LSS step ``lss_forward``'s, the full head within
+  1e-5 of an fp32 GEMM; ms a step beside the byte bounds.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after (``train_wol``: after each of its stages; the
 paper phases: each setting, query set or sweep); a kernel of the path
 that was not launched fails the run.  Checks and timings made inside a
-path's run do not count.  ``serve_engine``'s steps are CUDA graphs, whose
-replays call no wrapper: its wrappers count each step's warm-up and
-capture, and ``torch.profiler`` counts the kernels the replays ran.
+path's run do not count.  ``serve_engine``'s and ``decode``'s steps are
+CUDA graphs, whose replays call no wrapper: their wrappers count each
+step's warm-up and capture, and ``torch.profiler`` counts the kernels the
+replays ran.
 
 Every phase prints one JSON line; a failed check or an exception exits
 non-zero.  The line before the last is the card's name and power limit
@@ -74,6 +85,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch import resolve_device
     from repro_torch.benchmarks import paper_tables
+    from repro_torch.configs import qwen2_0_5b
     from repro_torch.configs.paper_datasets import DELICIOUS
     from repro_torch.core.iul import (MinedPairs, fit_lss, iul_init,
                                       iul_loss_and_grad, mine_pairs)
@@ -88,7 +100,7 @@ try:
     from repro_torch.core.tables import build_tables, bucketize_weights
     from repro_torch.core.topk import NEG_INF, topk_lowest_index
     from repro_torch.data.pipeline import ShardedBatchIterator
-    from repro_torch.data.synthetic import xc_dataset
+    from repro_torch.data.synthetic import lm_dataset, xc_dataset
     from repro_torch.examples import train_wol
     from repro_torch.kernels import _build, registry
     from repro_torch.kernels.bucket_logits import bucket_logits
@@ -105,8 +117,10 @@ try:
     from repro_torch.obs import assert_quiescent, trace_export
     from repro_torch.obs.audit import RecallAuditor
     from repro_torch.obs.export import prometheus_text
-    from repro_torch.serve import AsyncRuntime, Engine
-    from repro_torch.serve.runtime import submit_open_loop
+    from repro_torch.serve import AsyncRuntime, Engine, LMDecoder
+    from repro_torch.serve.runtime import (submit_decode_open_loop,
+                                           submit_open_loop)
+    from repro_torch.models import transformer as T
     from repro_torch.models import xc
     from repro_torch.models.xc import XCModel
     from repro_torch.testing.parity import (assert_close, assert_ints_equal,
@@ -154,6 +168,16 @@ TABLE2_CHUNK = 16          # queries a plain call: [16, 50,000, 65] rows
 TABLE1_CHUNK = 256         # queries a plain call: [256, <= 1,000, 97] rows
 SERVE_REQUESTS = 2048      # serve_engine: training rows served
 SERVE_QPS = 5000.0         # serve_engine: the open-loop Poisson rate
+DECODE_STREAMS = 8         # decode: pool slots (rows of the fused step)
+DECODE_MAX_LEN = 1024      # decode: pool width
+DECODE_PROMPTS = 16        # decode: sessions of 100-500 prompt tokens
+DECODE_NEW = 128           # decode: new tokens a session
+DECODE_CALIB = (8, 513)    # decode: fit_lss rows x tokens (4,096 positions)
+DECODE_IUL_EPOCHS = 4
+DECODE_QPS = 20.0          # decode: the open loop's sessions a second
+# decode: the full head's top logit against an fp32 GEMM of the same
+# hidden states (both fp32 GEMMs; scaled like LOGIT_ATOL)
+DECODE_FULL_TOL = 1e-5
 
 
 class SmokeFailure(AssertionError):
@@ -1266,12 +1290,20 @@ def same_bits(a, b) -> bool:
         a.view(np.uint8), b.view(np.uint8))
 
 
+def same_tensor_bits(a, b) -> bool:
+    """The same dtype, shape and bytes (any dtype, bf16 included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
 def device_kernel_count(prof, name: str) -> int:
     """The device kernels in a profiler window whose name holds ``name``
-    (kernels inside a CUDA graph's replay are listed one by one)."""
+    (kernels inside a CUDA graph's replay are listed one by one), read
+    from the profiler's raw records: ``prof.events()`` would first build
+    an event object for each of a decode run's ~500,000 kernels."""
     from torch.autograd import DeviceType
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA and name in e.name)
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and name in e.name())
 
 
 def host_ms(fn, iters: int = TIME_ITERS) -> float:
@@ -1532,6 +1564,338 @@ def phase_serve_engine(dev, smi, model, index, lss_cfg, data, counters):
     return device_launches
 
 
+# ------------------------------------------------------ streaming decode --
+
+def decode_prompts(vocab):
+    """``DECODE_PROMPTS`` prompts of 100-500 tokens (``lm_dataset``, seed
+    ``SEED + 1``): prompts 12-15 repeat prompts 0-3 (a paged join maps
+    them from cached pages and skips prefill), prompts 8-11 share their
+    first 256 tokens with prompts 4-7 (two cached full pages each)."""
+    rows = lm_dataset(SEED + 1, DECODE_PROMPTS * 512, vocab, 512)
+    lens = np.random.default_rng(SEED).integers(100, 501, DECODE_PROMPTS)
+    prompts = [rows[i, :lens[i]] for i in range(DECODE_PROMPTS)]
+    for i in range(4):
+        prompts[4 + i] = rows[4 + i, :max(lens[4 + i], 300)]
+        prompts[8 + i] = np.concatenate(
+            [rows[4 + i, :256], rows[8 + i, 256:max(lens[8 + i], 300)]])
+        prompts[12 + i] = prompts[i].copy()
+    return prompts
+
+
+def decode_bounds(dec, lengths_mean):
+    """Byte bounds of one decode step over ``DECODE_STREAMS`` rows: the
+    layer weights, the valid KV of rows at ``lengths_mean``, and the head
+    (full: the fp32 ``[V, d]`` head; LSS: one slab a row, its ids and
+    occupied rows at most)."""
+    cfg, t = dec.cfg, dec.index.tables
+    body = sum(a.numel() * a.element_size()
+               for a in dec.params["layers"].values())
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    kv = DECODE_STREAMS * lengths_mean * kv_token
+    full = dec.engine.w.numel() * 4
+    d_aug = cfg.d_model + 1
+    lss = DECODE_STREAMS * t.n_tables * t.capacity * (4 * d_aug + 4)
+    ms = {k: nbytes / PEAK_BYTES_PER_S * 1e3 for k, nbytes in
+          (("body", body + kv), ("full", full), ("lss", lss))}
+    return {"body_bytes": body, "kv_bytes_per_token": kv_token,
+            "kv_bytes": kv, "full_head_bytes": full,
+            "lss_head_bytes": lss, "full_ms": ms["body"] + ms["full"],
+            "lss_ms": ms["body"] + ms["lss"], "body_ms": ms["body"]}
+
+
+def run_sessions(sched, prompts, steps):
+    streams = [sched.submit(p, max_new_tokens=steps) for p in prompts]
+    sched.run(timeout=600.0)
+    return [s.result(timeout=60.0) for s in streams]
+
+
+def decode_runtime(dec, head, prompts, qps):
+    """The prompts through a fresh AsyncRuntime's decode kind: paced at
+    ``qps`` sessions a second (0: a burst).  Returns the tokens and the
+    runtime's stats."""
+    sched = dec.scheduler(head=head)
+    sched.reset_stats()
+    rt = AsyncRuntime(dec.engine, head=head, max_queue=4 * len(prompts),
+                      policy="block", scheduler=sched)
+    streams, _ = submit_decode_open_loop(rt, prompts, qps, seed=SEED,
+                                         max_new_tokens=DECODE_NEW)
+    rt.drain(timeout=600.0)
+    toks = [s.result(timeout=60.0) for s in streams]
+    stats = rt.stats()
+    rt.close(timeout=60.0)
+    return toks, stats
+
+
+def check_decode_step(dec, head, prompts, blocking, counters, smi):
+    """Outside the counts, on ``DECODE_STREAMS`` sessions mid-flight: one
+    replayed step against the eager step on copies of its inputs (the
+    same bits), its head against ``lss_forward`` (the same bits) or an
+    fp32 GEMM (within ``DECODE_FULL_TOL``, ids exact away from ties),
+    host ms of a replay and of an eager step; then the sessions run to
+    their end and must give their blocking tokens."""
+    sched = dec.scheduler(head=head)
+    step_rows = prompts[:DECODE_STREAMS]
+    streams = [sched.submit(p, max_new_tokens=DECODE_NEW) for p in step_rows]
+    with uncounted(counters):
+        for _ in range(3):
+            sched.tick()
+        step = sched.decode_step()
+        ops = sched.pool.step_operands()
+        lengths = ops[-1].copy()
+        snap = [sched.tok.clone(), ops[0].clone(), ops[1].clone(),
+                *(torch.from_numpy(o).to(dec.device) for o in ops[2:])]
+        sched.tick()
+        hidden, ho = sched._inflight.out
+        want_hidden, want = step.fn(dec.params, *snap)
+        torch.cuda.synchronize()
+        require(same_tensor_bits(hidden, want_hidden)
+                and same_tensor_bits(ho.ids, want.ids)
+                and same_tensor_bits(ho.logits, want.logits),
+                f"decode {head}: the replay differs from the eager step")
+        del snap
+        q = hidden.float()
+        if head == "lss":
+            ref = lss_forward(q, dec.engine.index_for(sched._epoch), None, 1)
+            require(same_tensor_bits(ho.ids, ref.top_ids)
+                    and same_tensor_bits(ho.logits, ref.top_logits),
+                    "decode lss: the step differs from lss_forward")
+            head_check = {"vs_lss_forward": "bit-identical"}
+        else:
+            w = dec.engine.w
+            want_lg, want_ids = topk_lowest_index(q @ w.T, 2)
+            scale = logit_scale(want_lg[:, :1])
+            err = assert_close(ho.logits, want_lg[:, :1],
+                               rtol=DECODE_FULL_TOL,
+                               atol=DECODE_FULL_TOL * scale,
+                               what="decode full-head logits")
+            n_ids = assert_topk_ids_equal(
+                ho.ids, want_ids[:, :1], want_lg[:, :1],
+                DECODE_FULL_TOL * scale, next_logit=want_lg[:, 1],
+                what="decode full-head ids")
+            head_check = {"vs_fp32_gemm_max_abs_err": err,
+                          "ids_checked": n_ids}
+        # host ms of one step in this state: a call writes this step's
+        # KV at each row's position again (the next real step rewrites
+        # it) and feeds its tokens back, so the tokens are put back
+        tok0 = sched.tok.clone()
+        ops = sched.pool.step_operands()
+        dev_ops = [torch.from_numpy(o).to(dec.device) for o in ops[2:]]
+        graph_ms = host_ms(lambda: step(dec.params, sched.tok, *ops))
+        eager_ms = host_ms(lambda: step.fn(dec.params, sched.tok, ops[0],
+                                           ops[1], *dev_ops), iters=5)
+        sched.tok.copy_(tok0)
+        sched.run(timeout=600.0)
+    for i, st in enumerate(streams):
+        require(np.array_equal(st.result(timeout=60.0), blocking[i]),
+                f"decode {head}: session {i} differs after the checks")
+    return {"head": head, "rows": DECODE_STREAMS,
+            "mean_length": float(lengths.mean()), "graph_ms": graph_ms,
+            "eager_ms": eager_ms, "graph_vs_eager": "bit-identical",
+            **head_check, "device": smi}, q
+
+
+def decode_kernels(index, q, q_calib, smi):
+    """``lss_topk`` at the decode step's shapes (``q``: the hidden states
+    of ``DECODE_STREAMS`` rows), B = 8 and B = 1, against its plain
+    version, timed beside its bound, with its shared-memory layout; and
+    ``simhash_codes`` at ``fit_lss``'s mining batch (256 calibration
+    queries ``q_calib``, d = 897, K = 10, L = 1), the same way."""
+    t = index.tables
+    q_aug = augment_queries(q.float())
+    d = q_aug.shape[1]
+    lay = lss_topk_ops.lss_topk_layout(d, t.k_bits, t.n_tables, t.capacity)
+    out = {"d_aug": d, "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+           "smem_bytes": lay.smem, "scratch_bytes": lay.scratch,
+           "rows_per_chunk": lay.rows,
+           "blocks_per_sm": lss_topk_ops.lss_topk_blocks_per_sm(
+               d, t.k_bits, t.n_tables, t.capacity), "device": smi}
+    for bsz in (DECODE_STREAMS, 1):
+        qb = q_aug[:bsz].contiguous()
+        args = (qb, index.theta, t.table_ids, index.w_bucketed)
+        _, check, got = compare_lss_topk(*args, None, 1)
+        b_ms, b_by, nbytes, _ = lss_topk_bound_ms(qb, index, got[3], 1)
+        out[f"B{bsz}"] = {
+            "ms": time_ms(lambda: lss_topk(*args, top_k=1)),
+            "plain_ms": time_ms(lambda: lss_topk_ref(*args, top_k=1),
+                                iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+            **check}
+    code_args = (unit(augment_queries(q_calib[:256].float())), index.theta,
+                 t.k_bits, t.n_tables)
+    _, s_err = compare_simhash(*code_args)
+    s_b, s_by, _, _ = simhash_bound_ms(256, d, t.k_bits, t.n_tables)
+    return {"lss_topk": out, "simhash_codes": {
+        "B": 256, "d_aug": d, "K": t.k_bits, "L": t.n_tables,
+        "max_abs_err": s_err, "ms": time_ms(lambda: simhash_codes(*code_args)),
+        "plain_ms": time_ms(lambda: simhash_codes_ref(*code_args)),
+        "bound_ms": s_b, "bound_by": s_by, "device": smi}}
+
+
+def phase_decode(dev, smi, counters):
+    """Streaming decode at Qwen2-0.5B's full width (random bf16 weights,
+    seed 0): ``LMDecoder.fit_lss`` on the 151,936-wide LM head (K = 10,
+    L = 1, P = 304), then ``DECODE_PROMPTS`` prompts of 100-500 tokens,
+    ``DECODE_NEW`` new tokens each: blocking ``generate`` one prompt at a
+    time (dense KV) with both heads; the same sessions interleaved
+    through the paged KV layout (prefix-shared prompts skip prefill); the
+    AsyncRuntime's decode kind at ``DECODE_QPS`` sessions a second and in
+    a burst (LSS), in a burst (full).  Every run gives the blocking
+    tokens bit for bit.  That is the counted run (``simhash_codes`` in
+    ``fit_lss``; ``lss_topk`` in each LSS step's warm-up and capture),
+    and the paged LSS run inside it runs under ``torch.profiler``, which
+    must see one ``lss_topk`` kernel for each step replayed, each
+    first-token rank and each warm-up.
+    Then, outside the counts: a replayed step against the eager step,
+    ``lss_forward`` and an fp32 GEMM; ``lss_topk`` at the decode shapes against its plain version; ms a
+    step beside the byte bounds."""
+    t_phase = time.perf_counter()
+    cfg = qwen2_0_5b.CONFIG
+    lss_cfg = qwen2_0_5b.LSS._replace(iul_epochs=DECODE_IUL_EPOCHS)
+    params = T.init_params(torch.Generator(dev).manual_seed(SEED), cfg,
+                           device=dev)
+    calib = lm_dataset(SEED, DECODE_CALIB[0] * DECODE_CALIB[1], cfg.vocab,
+                       DECODE_CALIB[1])
+    prompts = decode_prompts(cfg.vocab)
+    dense = LMDecoder(params, cfg, lss_cfg, max_streams=DECODE_STREAMS,
+                      max_len=DECODE_MAX_LEN, kv_layout="dense")
+    torch.cuda.synchronize()
+
+    reset(counters)
+    t0 = time.perf_counter()
+    hist = dense.fit_lss(torch.Generator(dev).manual_seed(SEED + 1), calib)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    index = dense.index
+    t = index.tables
+    emit({"phase": "decode_fit", "model": cfg.name, "vocab": cfg.vocab,
+          "d_model": cfg.d_model, "layers": cfg.n_layers,
+          "calib_positions": calib.shape[0] * (calib.shape[1] - 1),
+          "iul_epochs": lss_cfg.iul_epochs, "seconds": fit_s,
+          "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+          "C": t.n_tables * t.capacity,
+          "n_dropped": int(t.n_dropped.sum()),
+          "calib_recall": hist["recall"], "device": smi})
+    require((t.k_bits, t.n_tables, t.capacity) == (10, 1, 304),
+            f"decode: index K, L, P = {t.k_bits}, {t.n_tables}, "
+            f"{t.capacity}, not 10, 1, 304")
+
+    # blocking: one generate a prompt, the dense pool
+    blocking, seconds, steps = {}, {}, {}
+    for head in ("full", "lss"):
+        t0 = time.perf_counter()
+        blocking[head] = [
+            dense.generate(p[None], steps=DECODE_NEW, head=head,
+                           timeout=600.0).numpy()[0] for p in prompts]
+        seconds[f"blocking_{head}"] = time.perf_counter() - t0
+        steps[f"blocking_{head}"] = dense.scheduler(head).stats().n_steps
+    for head in ("full", "lss"):
+        toks = np.stack(blocking[head])
+        require(toks.shape == (DECODE_PROMPTS, DECODE_NEW)
+                and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+                f"decode {head}: tokens out of range")
+
+    # the same sessions interleaved through the paged pool; the LSS run
+    # under torch.profiler, which counts the lss_topk kernels it ran
+    from torch.profiler import ProfilerActivity, profile
+    paged = LMDecoder(params, cfg, lss_cfg, max_streams=DECODE_STREAMS,
+                      max_len=DECODE_MAX_LEN, kv_layout="paged")
+    paged.engine._set_index(index)
+    paged_stats = {}
+    for head in ("full", "lss"):
+        sched = paged.scheduler(head=head)
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if head == "lss" else contextlib.nullcontext()) as prof:
+            toks = run_sessions(sched, prompts, DECODE_NEW)
+            torch.cuda.synchronize()
+        seconds[f"paged_{head}"] = time.perf_counter() - t0
+        paged_stats[head] = sched.stats()._asdict()
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(toks, blocking[head])),
+                f"decode {head}: paged tokens differ from dense")
+        require(paged_stats[head]["n_prefill_skipped"] > 0,
+                f"decode {head}: no prefill skipped in the paged run")
+    # one lss_topk kernel on the device a replayed decode step or
+    # first-token rank, and one a warm-up of each LSS step built here
+    s = paged_stats["lss"]
+    device_launches = device_kernel_count(prof, "lss_topk")
+    del prof
+    ranked = s["n_sessions"] - s["n_prefill_skipped"]
+    builds = sum(n for (kind, _), n in paged.engine.compile_counts.items()
+                 if kind == "lss")
+    require(device_launches == s["n_steps"] + ranked + builds,
+            f"decode: the profiler saw {device_launches} lss_topk kernels "
+            f"in the paged LSS run for {s['n_steps']} steps, {ranked} "
+            f"first-token ranks and {builds} warm-ups")
+    profiled = {"run": "paged_lss", "lss_topk_kernels": device_launches,
+                "steps": s["n_steps"], "first_token_ranks": ranked,
+                "warm_ups": builds}
+
+    # the runtime's decode kind, interleaved
+    runs = {"lss_open_loop": ("lss", DECODE_QPS), "lss_burst": ("lss", 0.0),
+            "full_burst": ("full", 0.0)}
+    runtime_stats = {}
+    for name, (head, qps) in runs.items():
+        t0 = time.perf_counter()
+        toks, s = decode_runtime(dense, head, prompts, qps)
+        seconds[f"runtime_{name}"] = time.perf_counter() - t0
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(toks, blocking[head])),
+                f"decode {name}: interleaved tokens differ from blocking")
+        require(s.n_decode_done == DECODE_PROMPTS
+                and s.n_decode_tokens == DECODE_PROMPTS * DECODE_NEW
+                and s.n_shed_queue == 0 and s.n_shed_deadline == 0,
+                f"decode {name}: sessions shed or lost")
+        runtime_stats[name] = s._asdict()
+    launches = read(counters)
+    emit({"phase": "decode", "prompts": DECODE_PROMPTS,
+          "prompt_lengths": [len(p) for p in prompts],
+          "new_tokens": DECODE_NEW, "streams": DECODE_STREAMS,
+          "max_len": DECODE_MAX_LEN, "seconds": seconds,
+          "blocking_steps": steps, "launches": launches,
+          "profiler": profiled,
+          "tokens": "paged = dense, interleaved = blocking, bit for bit, "
+                    "both heads",
+          "top1_agreement_lss_vs_full": float(np.mean(
+              np.stack(blocking["lss"]) == np.stack(blocking["full"]))),
+          "paged": paged_stats, "runtime": runtime_stats,
+          "compile_counts": {f"{k}:{b}": v for (k, b), v in
+                             dense.engine.compile_counts.items()},
+          "device": smi})
+    require(launches["simhash_codes_cuda"] > 0,
+            "decode: simhash_codes was not launched in fit_lss")
+    require(launches["lss_topk_cuda"] == 8,
+            f"decode: lss_topk wrapper launches {launches['lss_topk_cuda']},"
+            f" not a warm-up and a capture for each of 4 LSS steps (the "
+            f"decode step and the first-token step of each layout)")
+    require(launches["bucket_logits_cuda"] == 0,
+            "decode: bucket_logits was launched")
+    torch.cuda.synchronize()
+    mem = {"allocated_mb": torch.cuda.memory_allocated() / 2 ** 20,
+           "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20,
+           "kv_dense_bytes": dense.scheduler("lss").pool.storage_bytes(),
+           "kv_paged_bytes": paged.scheduler("lss").pool.storage_bytes()}
+    del paged
+
+    checks, hidden = zip(*(check_decode_step(dense, head, prompts,
+                                             blocking[head], counters, smi)
+                           for head in ("lss", "full")))
+
+    with uncounted(counters):
+        kernels = decode_kernels(index, hidden[0], dense.engine.calib[0],
+                                 smi)
+    bounds = decode_bounds(dense, float(np.mean(
+        [c["mean_length"] for c in checks])))
+    emit({"phase": "decode_timing",
+          "what": "host-clock ms of one fused step over 8 rows, "
+                  "synchronised (median of 20 replays, 5 eager runs), "
+                  "beside the byte bounds at 3.35 TB/s",
+          "steps": checks, "bounds": bounds, **kernels, "memory": mem, "seconds": time.perf_counter() - t_phase,
+          "device": smi})
+    return launches, device_launches
+
+
 def bucket_logits_entry(index, q_aug0, launches):
     """bucket_logits at the unfused path's shapes (its first batch)."""
     w_flat, slab_ids = slab_inputs(q_aug0, index)
@@ -1632,10 +1996,15 @@ def main() -> int:
     serve_launches = phase_serve_engine(dev, smi, res["model"], res["index"],
                                         res["lss_config"], res["data"],
                                         counters)
+    del res
+    decode_launches, decode_device = phase_decode(dev, smi, counters)
+    line["kernels"][0]["launches_by_path"] = {
+        "main_path": line["kernels"][0]["launches"],
+        "decode": decode_launches["simhash_codes_cuda"]}
     line["kernels"][1]["launches_by_path"] = {
         "main_path": line["kernels"][1]["launches"],
-        "serve_engine": serve_launches}
-    del res
+        "serve_engine": serve_launches,
+        "decode": decode_device}
     phase_preemption(dev)
     phase_paper_table1(dev, smi, counters)
     phase_paper_table2(dev, smi, counters)

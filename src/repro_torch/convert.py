@@ -13,13 +13,15 @@ import torch
 from repro_torch.core.lss import LSSIndex
 from repro_torch.core.tables import LSSTables
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import TransformerConfig
 from repro_torch.models.xc import XCModel
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.train.trainer import TrainState
 from repro_torch.utils.tree import tree_map
 
 __all__ = ["tensor_from_numpy", "xc_params_from_numpy",
-           "lstm_params_from_numpy", "lss_index_from_numpy",
+           "lstm_params_from_numpy", "transformer_params_from_numpy",
+           "lss_index_from_numpy",
            "adamw_state_from_numpy", "train_state_from_numpy"]
 
 # JAX's XC parameter names -> the port's (the rest are the same)
@@ -57,6 +59,28 @@ def lstm_params_from_numpy(params: dict,
     """The JAX ``lstm.init_params`` dict (``embed``, ``layers``: ``wx``,
     ``wh``, ``b``; ``w_out``, ``b_out``) as the port's: the same names and
     nesting, each array a tensor on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), params)
+
+
+def transformer_params_from_numpy(params: dict, cfg: TransformerConfig,
+                                  device: str | torch.device | None = None
+                                  ) -> dict:
+    """The JAX ``transformer.init_params`` tree (``embed``, ``layers`` with
+    stacked ``[n_layers, ...]`` leaves, ``final_norm``, ``lm_head`` when
+    untied) as the port's: the same names, nesting and dtypes (bf16 by its
+    bits), each array a tensor on ``device``."""
+    if cfg.moe_style != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE parameters come with the rest of the model "
+            f"zoo (ROADMAP Queue 1 item 8)")
+    want = (cfg.vocab, cfg.d_model)
+    if tuple(np.shape(params["embed"])) != want:
+        raise ValueError(f"embed {np.shape(params['embed'])} != {want} of "
+                         f"{cfg.name}")
+    if ("lm_head" in params) == cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: lm_head must be present iff the "
+                         f"embeddings are untied")
     dev = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, dev), params)
 

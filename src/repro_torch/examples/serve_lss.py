@@ -1,19 +1,27 @@
 """Serving example (counterpart of the JAX package's
-``examples/serve_lss.py``, its score and async paths): the unified engine
-end to end.
+``examples/serve_lss.py``, all but its vocab-sharded path): the unified
+engine end to end on both request kinds.
 
 1. Score path — an Engine over an XC model: requests arrive one by one
    (``submit``), the continuous micro-batcher coalesces them into
    bucketed batches, and ``metrics()`` reports latency percentiles,
    throughput, sample size and label recall from the single retrieval
    pass.
-2. Async path — an Engine behind an ``AsyncRuntime``: open-loop Poisson
+2. Decode path — a small decoder-only LM (the reduced qwen2-0.5b),
+   trained with ``lm_loss`` through the port's ``Trainer``, then served
+   through ``LMDecoder`` (same Engine underneath): ``fit_lss`` on its LM
+   head, exact vs LSS head, tokens/s and agreement.
+3. Streaming decode — the same decoder behind the AsyncRuntime's decode
+   request kind: sessions join/leave a fixed slot pool mid-flight,
+   tokens resolve through per-token ``TokenStream`` futures, and the
+   interleaved tokens are bit-identical to blocking ``generate``.
+4. Async path — an Engine behind an ``AsyncRuntime``: open-loop Poisson
    traffic with per-request futures, then a burst segment, and an
    exact-equality check against the synchronous ``flush`` path.
 
-On the card each (head, bucket) step is a captured CUDA graph; on the
-CPU it runs eagerly.  The decode, streaming and vocab-sharded paths of
-the JAX example come with later slices of the port.
+On the card each (head, bucket) step and each fused decode step is a
+captured CUDA graph; on the CPU they run eagerly.  The vocab-sharded
+path of the JAX example comes with the multi-GPU slice.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lss [--device cpu]
 """
@@ -26,14 +34,20 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.reduced import reduced_model_cfg
 from repro_torch.core.lss import LSSConfig
-from repro_torch.data.synthetic import xc_dataset
+from repro_torch.data.pipeline import ShardedBatchIterator
+from repro_torch.data.synthetic import lm_dataset, xc_dataset
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
 from repro_torch.models import xc
-from repro_torch.serve import AsyncRuntime, Engine
-from repro_torch.serve.runtime import submit_open_loop
+from repro_torch.serve import AsyncRuntime, Engine, LMDecoder
+from repro_torch.serve.runtime import (submit_decode_open_loop,
+                                       submit_open_loop)
+from repro_torch.train.trainer import TrainConfig, Trainer
 
-__all__ = ["main", "score_path", "async_path"]
+__all__ = ["main", "score_path", "decode_path", "streaming_decode_path",
+           "async_path"]
 
 
 def score_path(dev: torch.device) -> dict:
@@ -69,6 +83,74 @@ def score_path(dev: torch.device) -> dict:
           f"{m.n_compiles} builds for buckets "
           f"{sorted({k[1] for k in eng.compile_counts})}")
     return m._asdict()
+
+
+def decode_path(dev: torch.device, train_steps: int
+                ) -> tuple[LMDecoder, np.ndarray, dict]:
+    print("== decode path: LMDecoder on the same Engine ==")
+    cfg = reduced_model_cfg("qwen2-0.5b")._replace(vocab=2048)
+    toks = lm_dataset(5, 200_000, cfg.vocab, 33)
+    tc = TrainConfig(lr=3e-3, warmup_steps=20, total_steps=train_steps,
+                     ckpt_every=10 ** 9)
+    tr = Trainer(lambda p, b: T.lm_loss(p, b, cfg),
+                 lambda g: T.init_params(g, cfg, device=dev), tc,
+                 device=dev)
+    it = ShardedBatchIterator({"tokens": toks[:, :-1],
+                               "labels": toks[:, 1:]}, 64, device=dev)
+    state, hist = tr.fit(torch.Generator(dev).manual_seed(0), it,
+                         train_steps, log_every=max(train_steps // 3, 1))
+    print(f"  LM trained: loss {hist[-1]['loss']:.3f} "
+          f"(uniform={np.log(cfg.vocab):.3f})")
+
+    dec = LMDecoder(state.params, cfg,
+                    LSSConfig(k_bits=6, n_tables=1, iul_epochs=4,
+                              iul_inner_steps=8, iul_lr=0.02),
+                    max_streams=16)      # one slot per prompt row below
+    print("  fitting LSS index on the LM head...")
+    dec.fit_lss(torch.Generator(dev).manual_seed(1), toks[:64],
+                verbose=True)
+
+    prompt = toks[1000:1016, :16]
+    outs, tps = {}, {}
+    for head in ("full", "lss"):
+        dec.generate(prompt, steps=32, head=head)           # builds
+        t0 = time.perf_counter()
+        outs[head] = dec.generate(prompt, steps=32, head=head)
+        tps[head] = prompt.shape[0] * 32 / (time.perf_counter() - t0)
+        print(f"  {head:4s} head: {tps[head]:,.0f} tok/s")
+    agree = float((outs["lss"] == outs["full"]).float().mean())
+    print(f"  top-1 agreement LSS vs full: {agree:.3f}")
+    return dec, toks, {"loss": hist[-1]["loss"], "tokens_per_s": tps,
+                       "agreement": agree}
+
+
+def streaming_decode_path(dec: LMDecoder, toks: np.ndarray) -> dict:
+    print("== streaming decode: sessions + TokenStream futures ==")
+    prompts = np.asarray(toks[2000:2012, :16], np.int32)
+    steps = 24
+    # blocking reference: one generate call per prompt (same fused step)
+    blocking = [dec.generate(p[None], steps=steps, head="lss").numpy()[0]
+                for p in prompts]
+    sched = dec.scheduler(head="lss")
+    sched.reset_stats()
+    with AsyncRuntime(dec.engine, head="lss", policy="shed",
+                      scheduler=sched) as rt:
+        streams, _ = submit_decode_open_loop(rt, list(prompts), 50.0,
+                                             max_new_tokens=steps, seed=0)
+        first = list(streams[0])        # iterate tokens as they resolve
+        rt.drain(timeout=300.0)
+        s = rt.stats()
+    exact = all(np.array_equal(st.result(timeout=60.0), blocking[i])
+                for i, st in enumerate(streams))
+    print(f"  {s.n_decode_done} sessions, {s.n_decode_tokens} tokens at "
+          f"{s.decode_tokens_per_s:,.0f} tok/s "
+          f"(slots={dec.max_streams}, occupancy "
+          f"{s.decode_slot_occupancy:.2f})")
+    print(f"  ttft p50={s.ttft_p50_ms:.1f} ms  "
+          f"itl p50={s.itl_p50_ms:.2f} ms  "
+          f"first stream: {len(first)} tokens streamed live")
+    print(f"  interleaved == blocking generate: {exact}")
+    return {**s._asdict(), "bit_identical": exact}
 
 
 def async_path(dev: torch.device) -> dict:
@@ -109,10 +191,18 @@ def async_path(dev: torch.device) -> dict:
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--train-steps", type=int, default=None,
+                    help="LM training steps of the decode path (default "
+                         "300, as the JAX example; 150 with --device cpu)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    steps = args.train_steps or (300 if dev.type == "cuda" else 150)
     with torch.no_grad():
-        return {"score": score_path(dev), "async": async_path(dev)}
+        out = {"score": score_path(dev)}
+        dec, toks, out["decode"] = decode_path(dev, steps)
+        out["streaming"] = streaming_decode_path(dec, toks)
+        out["async"] = async_path(dev)
+        return out
 
 
 if __name__ == "__main__":

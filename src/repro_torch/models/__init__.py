@@ -1,2 +1,2 @@
-"""Models: the paper's extreme-classification model and its RNN language
-model."""
+"""Models: the paper's extreme-classification model, its RNN language
+model, and the dense decoder-only transformer the decode path serves."""

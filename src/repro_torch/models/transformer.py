@@ -1,0 +1,403 @@
+"""Decoder-only LM, the dense architectures (counterpart of
+``repro.models.transformer``): qwen2-0.5b/7b and qwen3-4b.
+
+Parameters are a plain dict of tensors with the JAX package's names and
+layout: ``embed``, ``final_norm``, ``lm_head`` (untied only) and
+``layers``, whose leaves are stacked ``[n_layers, ...]``.  The layers run
+as a Python loop where JAX scans.
+
+Entry points:
+  * ``lm_loss(params, batch, cfg)``     — training loss (blockwise attn);
+    autograd gives its gradient.
+  * ``prefill(params, tokens, cfg, max_len)`` — build a KV cache.
+  * ``decode_step(params, token, cache, cfg)`` — one token; returns the
+    final-norm hidden state so the serving engine can apply either the
+    full vocab head or the LSS head (the paper's technique).
+  * ``decode_step_pooled(params, token, k, v, lengths, cfg)`` — one token
+    per POOL SLOT with per-row cache lengths (continuous batching; see
+    ``repro_torch.serve.decode``).
+  * ``decode_step_paged(...)`` — the same over a paged KV arena.
+
+The decode steps write the new KV into the cache tensors they are given,
+IN PLACE, and return those same tensors: this takes the place of the
+JAX package's functional cache update (and of its buffer donation on
+TPU), and it is what lets the serving engine capture a step as a CUDA
+graph over the pool's own slabs.
+
+The MoE styles come with the rest of the model zoo (ROADMAP Queue 1 item
+8); ``param_specs``, ``cache_specs`` and the sharding constraints with
+multi-GPU sharding (item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+__all__ = ["TransformerConfig", "init_params", "forward", "logits_head",
+           "gold_logit", "lm_loss", "KVCache", "init_cache", "prefill",
+           "decode_step", "decode_step_pooled", "decode_step_paged"]
+
+
+class TransformerConfig(NamedTuple):
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_base: float = 1e6
+    tie_embeddings: bool = False
+    # MoE: style "none" | "replace" (FFN -> MoE) | "parallel" (dense + MoE)
+    moe_style: str = "none"
+    n_experts: int = 0
+    n_experts_padded: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    shared_expert_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_fsdp: bool = False
+    moe_groups: int = 1
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    kv_chunk: int = 512
+    q_chunk: int = 2048    # long-prefill query chunking
+    # the JAX package's "scan" | "unroll"; kept so that a JAX config's
+    # fields carry over as they are: the port's layers always run as a
+    # Python loop, which is JAX's "unroll"
+    layers_impl: str = "scan"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS cross-checks)."""
+        d, f = self.d_model, self.d_ff
+        nq = self.n_heads * self.head_dim
+        nkv = self.n_kv_heads * self.head_dim
+        attn = d * nq + 2 * d * nkv + nq * d
+        if self.qkv_bias:
+            attn += nq + 2 * nkv
+        dense_ffn = 3 * d * f if self.moe_style in ("none", "parallel") else 0
+        moe = 0
+        if self.moe_style != "none":
+            moe = self.n_experts * 3 * d * self.moe_d_ff + d * self.n_experts
+        shared = (3 * d * self.shared_expert_ff + d
+                  if self.shared_expert_ff else 0)
+        if self.moe_style == "replace":
+            dense_ffn = 0
+        per_layer = attn + dense_ffn + moe + shared + 2 * d
+        head = 0 if self.tie_embeddings else self.vocab * d
+        return self.n_layers * per_layer + self.vocab * d + head + d
+
+
+def _dense_only(cfg: TransformerConfig) -> None:
+    if cfg.moe_style != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_style={cfg.moe_style!r} comes with the rest "
+            f"of the model zoo (ROADMAP Queue 1 item 8); the port runs the "
+            f"dense architectures")
+
+
+# ------------------------------------------------------------------ init --
+
+def init_params(generator: torch.Generator, cfg: TransformerConfig,
+                device: str | torch.device | None = None) -> dict:
+    """Normal draws scaled as the JAX package's ``init_params`` (embed
+    N(0, 1); projections d_in**-0.5), unit norms, zero biases; drawn on
+    ``generator``'s device in fp32, stored in ``cfg.dtype`` (norm scales in
+    fp32) on ``device`` (the GPU unless the caller asks for the CPU)."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    dt = cfg.dtype
+    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    nq = cfg.n_heads * cfg.head_dim
+    nkv = cfg.n_kv_heads * cfg.head_dim
+    s = d ** -0.5
+
+    def nrm(shape, scale):
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x * scale).to(device=dev, dtype=dt)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    lyr = {"ln1": ones(n, d), "ln2": ones(n, d),
+           "wq": nrm((n, d, nq), s), "wk": nrm((n, d, nkv), s),
+           "wv": nrm((n, d, nkv), s), "wo": nrm((n, nq, d), nq ** -0.5)}
+    if cfg.qkv_bias:
+        lyr.update(bq=zeros(n, nq), bk=zeros(n, nkv), bv=zeros(n, nkv))
+    if cfg.qk_norm:
+        lyr.update(q_norm=ones(n, cfg.head_dim), k_norm=ones(n, cfg.head_dim))
+    lyr.update(w_gate=nrm((n, d, f), s), w_up=nrm((n, d, f), s),
+               w_down=nrm((n, f, d), f ** -0.5))
+    params = {"embed": nrm((cfg.vocab, d), 1.0), "layers": lyr,
+              "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = nrm((cfg.vocab, d), s)
+    return params
+
+
+def _layer_params(params: dict, i: int) -> dict:
+    return {k: a[i] for k, a in params["layers"].items()}
+
+
+# -------------------------------------------------------------- forward ---
+
+def _write_cache(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor
+                 ) -> torch.Tensor:
+    """Write the ``[B, 1, KV, H]`` step into ``cache[:, pos]`` IN PLACE
+    (``pos`` [B], or a scalar all rows share) and return ``cache``.
+
+    A row whose ``pos`` is past the end (``lengths == max_len``) writes
+    nothing, as the JAX one-hot write falls off the slab: its slot keeps
+    its bits (the row rewrites its own value), never clamped onto the
+    last position."""
+    b, s = cache.shape[:2]
+    pos = torch.as_tensor(pos, device=cache.device).long().expand(b)
+    rows = torch.arange(b, device=cache.device)
+    at = pos.clamp(max=s - 1)
+    new = torch.where((pos < s)[:, None, None], kv[:, 0].to(cache.dtype),
+                      cache[rows, at])
+    cache[rows, at] = new
+    return cache
+
+
+def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
+                kv_len=None):
+    """Shared attention block. mode: train | prefill | decode.  ``rope`` is
+    ``rope_cos_sin`` at the block's positions."""
+    b, s, _ = x.shape
+    h = L.rms_norm(x, lp["ln1"])
+    q = torch.einsum("bsd,dn->bsn", h, lp["wq"])
+    k = torch.einsum("bsd,dn->bsn", h, lp["wk"])
+    v = torch.einsum("bsd,dn->bsn", h, lp["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, lp["q_norm"])
+        k = L.rms_norm(k, lp["k_norm"])
+    q = L.rotate(q, *rope)
+    k = L.rotate(k, *rope)
+
+    if mode == "decode":
+        pos = torch.as_tensor(kv_len, device=x.device) - 1   # write slot
+        k_cache = _write_cache(cache[0], k, pos)
+        v_cache = _write_cache(cache[1], v, pos)
+        out = L.attention_decode(q, k_cache, v_cache, kv_len)
+        new_cache = (k_cache, v_cache)
+    else:
+        out = L.attention_blockwise(q, k, v, causal=True,
+                                    kv_chunk=cfg.kv_chunk,
+                                    q_chunk=cfg.q_chunk)
+        new_cache = (k, v) if mode == "prefill" else None
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return x + torch.einsum("bsn,nd->bsd", out, lp["wo"]), new_cache
+
+
+def _ffn_block(x, lp, cfg: TransformerConfig):
+    h = L.rms_norm(x, lp["ln2"])
+    return x + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _layer(x, lp, cfg, rope, mode, cache=None, kv_len=None):
+    x, new_cache = _attn_block(x, lp, cfg, rope, mode, cache, kv_len)
+    return _ffn_block(x, lp, cfg), new_cache
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            mode: str = "train"):
+    """tokens [B, S] -> (hidden [B, S, D] after final norm, caches, aux).
+
+    ``caches`` (prefill only) is ``(k, v)``, each ``[L, B, S, KV, H]``;
+    ``aux`` is the MoE balance loss, 0 for the dense architectures."""
+    _dense_only(cfg)
+    x = params["embed"][tokens].to(cfg.dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device
+                             ).expand(tokens.shape)
+    rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, cache = _layer(x, _layer_params(params, i), cfg, rope, mode)
+        if mode == "prefill":
+            ks.append(cache[0])
+            vs.append(cache[1])
+    caches = (torch.stack(ks), torch.stack(vs)) if mode == "prefill" else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rms_norm(x, params["final_norm"]), caches, aux
+
+
+def logits_head(params: dict, hidden: torch.Tensor,
+                cfg: TransformerConfig) -> torch.Tensor:
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("bsd,vd->bsv", hidden, head).float()
+
+
+def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit (one device here: a gather, where JAX takes an
+    iota-mask sum that stays sharded)."""
+    return logits.gather(-1, labels[..., None].long())[..., 0]
+
+
+def lm_loss(params: dict, batch: dict, cfg: TransformerConfig
+            ) -> torch.Tensor:
+    """batch: tokens [B, S] int, labels [B, S] (-100 = masked)."""
+    hidden, _, aux = forward(params, batch["tokens"], cfg, mode="train")
+    logits = logits_head(params, hidden, cfg)
+    labels = batch["labels"]
+    mask = labels >= 0
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = gold_logit(logits, labels.clamp(min=0))
+    nll = (logz - gold) * mask
+    loss = nll.sum() / mask.sum().clamp(min=1)
+    return loss + 0.01 * aux
+
+
+# ---------------------------------------------------------------- serving --
+
+class KVCache(NamedTuple):
+    k: torch.Tensor    # [n_layers, B, S_max, KV, H]
+    v: torch.Tensor
+    length: int        # valid prefix length
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               dtype: torch.dtype | None = None,
+               device: str | torch.device | None = None) -> KVCache:
+    dt = dtype or cfg.dtype
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return KVCache(torch.zeros(shape, dtype=dt, device=dev),
+                   torch.zeros(shape, dtype=dt, device=dev), 0)
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            max_len: int) -> tuple[torch.Tensor, KVCache]:
+    """Run the prompt; returns (final-norm hidden [B, S, D], cache)."""
+    hidden, (k, v), _ = forward(params, tokens, cfg, mode="prefill")
+    pad = max_len - tokens.shape[1]         # [L, B, S, KV, H]
+    if pad > 0:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    return hidden, KVCache(k.to(cfg.dtype), v.to(cfg.dtype),
+                           int(tokens.shape[1]))
+
+
+def _decode_layers(params: dict, token: torch.Tensor,
+                   layer_cache: Callable, positions: torch.Tensor, kv_len,
+                   cfg: TransformerConfig,
+                   after: Callable | None = None) -> torch.Tensor:
+    """Shared one-token layer loop.  token [B]; ``layer_cache(i)`` gives
+    layer i's ``(k, v)`` ``[B, S, KV, H]``, which the layer writes in
+    place; ``after(i, k, v)`` runs once layer i has attended; positions
+    [B, 1], kv_len scalar or [B] -> hidden [B, D].  Every op is
+    row-parallel over B."""
+    _dense_only(cfg)
+    x = params["embed"][token[:, None]].to(cfg.dtype)        # [B, 1, D]
+    rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
+    for i in range(cfg.n_layers):
+        x, (k_i, v_i) = _layer(x, _layer_params(params, i), cfg, rope,
+                               "decode", layer_cache(i), kv_len)
+        if after is not None:
+            after(i, k_i, v_i)
+    return L.rms_norm(x[:, 0], params["final_norm"])
+
+
+def decode_step(params: dict, token: torch.Tensor, cache: KVCache,
+                cfg: TransformerConfig) -> tuple[torch.Tensor, KVCache]:
+    """One decode step. token [B] int -> (hidden [B, D], new cache).
+
+    Writes the step's KV into ``cache.k``/``cache.v`` in place; the new
+    cache holds the same tensors and ``length + 1``.  The caller applies
+    the head: ``logits_head`` for exact serving or the LSS index
+    (``repro_torch.core``) for sub-linear WOL serving.
+    """
+    b = token.shape[0]
+    kv_len = cache.length + 1
+    positions = torch.full((b, 1), cache.length, dtype=torch.long,
+                           device=token.device)
+    hidden = _decode_layers(params, token, lambda i: (cache.k[i], cache.v[i]),
+                            positions, kv_len, cfg)
+    return hidden, KVCache(cache.k, cache.v, kv_len)
+
+
+def decode_step_pooled(params: dict, token: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, lengths: torch.Tensor,
+                       cfg: TransformerConfig
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step over a slot pool with PER-ROW cache lengths.
+
+    token [B] int, k/v [L, B, S_max, KV, H] slabs, lengths [B] int
+    (current valid prefix per slot) -> (hidden [B, D], k, v), the slabs
+    written in place at each row's own position.
+
+    Row ``i`` computes exactly what :func:`decode_step` computes for a
+    batch-1 cache of the same width ``S_max`` — every op is row-parallel.
+    """
+    hidden = _decode_layers(params, token, lambda i: (k[i], v[i]),
+                            lengths[:, None].long(), lengths + 1, cfg)
+    return hidden, k, v
+
+
+def decode_step_paged(params: dict, token: torch.Tensor,
+                      k_arena: torch.Tensor, v_arena: torch.Tensor,
+                      page_table: torch.Tensor, lengths: torch.Tensor,
+                      cfg: TransformerConfig, max_len: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decode_step_pooled` over PAGED KV storage.
+
+    token [B] int, k/v arenas [L, n_pages, page_tokens, KV, H],
+    page_table [B, pages_per_slot] int (0 = unmapped -> the reserved
+    scratch page), lengths [B] int -> (hidden [B, D], k_arena, v_arena).
+
+    Bit-identity with the dense layout is by construction: each layer
+    gathers every row's pages IN ORDER into a contiguous view sliced to
+    exactly ``max_len`` — the shape the dense slab presents — so the
+    layer runs the very same reduction over the very same valid contents
+    (positions >= lengths are masked to exact zeros either way).  Slicing
+    to ``max_len`` (not ``pages_per_slot * page_tokens``) is
+    load-bearing: reductions are not shape-invariant at the ulp level, on
+    the CPU or in cuBLAS.
+
+    The gather materialises one layer's ``[B, max_len, KV, H]`` view at a
+    time, so the paged layout's savings are in PERSISTENT arena bytes.
+    The new KV row is scattered back into each row's current write page
+    (page ``lengths // p``, offset ``lengths % p``).  Rows that must not
+    write — parked slots and rows at ``lengths == max_len`` — are sent to
+    scratch page 0, so a freed slot's in-flight step can never corrupt a
+    recycled page.
+    """
+    _, _, p, n_kv, h_dim = k_arena.shape
+    b, n_pp = page_table.shape
+    w = max_len
+    table = page_table.long()
+    lengths = lengths.long()
+    rows = torch.arange(b, device=lengths.device)
+    wpos = lengths.clamp(0, w - 1)
+    pidx = (lengths // p).clamp(0, n_pp - 1)
+    dest = torch.where(lengths < w, table[rows, pidx], 0)   # full -> scratch
+    off = torch.where(lengths < w, lengths % p, 0)
+
+    def view(arena, i):
+        return arena[i][table].reshape(b, n_pp * p, n_kv, h_dim)[
+            :, :w].contiguous()
+
+    def scatter(i, k_view, v_view):
+        k_arena[i][dest, off] = k_view[rows, wpos]
+        v_arena[i][dest, off] = v_view[rows, wpos]
+
+    hidden = _decode_layers(
+        params, token, lambda i: (view(k_arena, i), view(v_arena, i)),
+        lengths[:, None], lengths + 1, cfg, after=scatter)
+    return hidden, k_arena, v_arena

@@ -22,11 +22,16 @@ Request flow::
     engine.flush()                 # coalesce -> bucketed steps
     engine.metrics()               # ServeMetrics snapshot
 
+The decode path shares the engine: ``decode_logits`` builds one fused
+decode step per (head, pool tag) — the model's pooled or paged body
+straight into the head, a CUDA graph on the card — and ``LMDecoder``
+serves an LM through it (``repro_torch.serve.decode``).  A decode
+generation pins the index epoch it started under (``pin_epoch``).
+
 ``WOLServer`` remains as a thin compatibility wrapper.  Requests are
 pytrees (``{"x": ids}``) of numpy arrays or tensors, as in JAX.  Still
-to come: the decode path (``decode_logits``, ``LMDecoder``), online
-refresh (``warm_epoch``, ``swap_index``, epoch pins) and the
-vocab-sharded and multi-process heads.
+to come: online refresh (``warm_epoch``, ``swap_index``,
+``swap_from_theta``) and the vocab-sharded and multi-process heads.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from repro_torch.serve.heads import (HEAD_KINDS, HeadOutput, make_full_head,
 from repro_torch.serve.step import Step
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["Engine", "ServeMetrics", "RankResult", "WOLServer",
+__all__ = ["Engine", "ServeMetrics", "RankResult", "WOLServer", "LMDecoder",
            "host_numpy", "stack_rows"]
 
 
@@ -88,16 +93,19 @@ class _Pending(NamedTuple):
 class _IndexEpoch:
     """One fitted-index generation and everything derived from it: its
     LSS heads and steps.  ``_set_index`` prepares a new generation and
-    flips ``Engine.index_epoch`` to it in O(1) under the lock, dropping
-    the others (no decode session pins one yet)."""
+    flips ``Engine.index_epoch`` to it in O(1) under the lock.  Old
+    generations stay resident while decode sessions that prefilled under
+    them are still draining (``pins``) and are dropped at unpin or at the
+    next swap once unpinned."""
 
-    __slots__ = ("epoch", "index", "heads", "steps")
+    __slots__ = ("epoch", "index", "heads", "steps", "pins")
 
     def __init__(self, epoch: int, index: LSSIndex):
         self.epoch = epoch
         self.index = index
         self.heads: dict[str, Callable] = {}      # lss kinds only
-        self.steps: dict[tuple[str, int], Step] = {}
+        self.steps: dict[tuple[str, Any], Step] = {}
+        self.pins = 0             # decode generations holding this epoch
 
 
 def host_numpy(leaf) -> np.ndarray:
@@ -175,10 +183,11 @@ class Engine:
         self.index_epoch: int = 0     # 0 = no fitted index yet
         self._epoch_seq: int = 0
         self._full_head: Callable | None = None
-        # steps: the index-free full-head steps here, LSS steps in their
-        # _IndexEpoch.  One build-count table spans all epochs.
-        self._steps: dict[tuple[str, int], Step] = {}
-        self.compile_counts: dict[tuple[str, int], int] = {}
+        # steps: (head, bucket) score steps and (head, "decode[...]")
+        # fused decode steps; the index-free full-head ones here, LSS ones
+        # in their _IndexEpoch.  One build-count table spans all epochs.
+        self._steps: dict[tuple[str, Any], Step] = {}
+        self.compile_counts: dict[tuple[str, Any], int] = {}
         self.calib: tuple | None = None   # (q, labels) refs from last fit
         self._queue: list[_Pending] = []
         self._results: list[RankResult] = []
@@ -241,11 +250,19 @@ class Engine:
         st = self._epochs.get(self.index_epoch)
         return None if st is None else st.index
 
-    def _epoch_state(self) -> _IndexEpoch:
-        st = self._epochs.get(self.index_epoch)
+    def index_for(self, epoch: int) -> LSSIndex:
+        """The index a specific (e.g. pinned) epoch serves."""
+        return self._epoch_state(epoch).index
+
+    def _epoch_state(self, epoch: int | None = None) -> _IndexEpoch:
+        e = self.index_epoch if epoch is None else epoch
+        st = self._epochs.get(e)
         if st is None:
-            raise ValueError("LSS head needs a fitted index: call fit()/"
-                             "fit_random()")
+            if e == 0:
+                raise ValueError("LSS head needs a fitted index: call "
+                                 "fit()/fit_random()")
+            raise KeyError(f"index epoch {e} is gone (unpinned epochs "
+                           f"are dropped at swap)")
         return st
 
     def _set_index(self, index: LSSIndex) -> None:
@@ -263,16 +280,47 @@ class Engine:
 
     def _swap_prepared(self, epoch: int) -> int:
         """Flip the serving epoch to ``epoch`` in O(1) under the lock and
-        drop every other epoch: a chunk that fetched its step before the
-        flip runs the old generation to completion."""
+        drop every other unpinned epoch: a chunk that fetched its step
+        before the flip runs the old generation to completion."""
         with self.lock:
-            st = self._epochs[epoch]
+            st = self._epoch_state(epoch)
             old = self.index_epoch
             self.index_epoch = st.epoch
-            for k in [k for k in self._epochs if k != st.epoch]:
+            for k in [k for k, s in self._epochs.items()
+                      if k != st.epoch and s.pins <= 0]:
                 del self._epochs[k]
         obs.event("index_swap", epoch=epoch, prev=old)
         return epoch
+
+    def pin_epoch(self, epoch: int | None = None) -> int:
+        """Pin an epoch (default: the serving one) so a swap cannot drop
+        it — decode sessions rank through the generation they prefilled
+        under until they leave.  Returns the pinned epoch id."""
+        with self.lock:
+            st = self._epoch_state(epoch)
+            st.pins += 1
+            return st.epoch
+
+    def unpin_epoch(self, epoch: int) -> None:
+        """Release a pin; a non-serving epoch with no pins left is
+        dropped (its index, heads and steps become collectable)."""
+        with self.lock:
+            st = self._epochs.get(epoch)
+            if st is None:
+                return
+            st.pins -= 1
+            if st.pins <= 0 and epoch != self.index_epoch:
+                del self._epochs[epoch]
+
+    def drop_step(self, kind: str, tag) -> None:
+        """Remove one cached step (every epoch's copy included) — the
+        scheduler-replacement path uses this so an outgrown fused step
+        (and the pool tensors its graph holds) cannot collide with its
+        successor's tag."""
+        with self.lock:
+            self._steps.pop((kind, tag), None)
+            for st in self._epochs.values():
+                st.steps.pop((kind, tag), None)
 
     # ------------------------------------------------------ head lookup --
     def _head(self, kind: str, st: _IndexEpoch | None = None) -> Callable:
@@ -291,42 +339,100 @@ class Engine:
         return st.heads[kind]
 
     # ------------------------------------------------------------ steps --
-    def _step(self, kind: str, bucket: int) -> Step:
+    def _step(self, kind: str, bucket: int,
+              epoch: int | None = None) -> Step:
         """One step per (head, bucket) per index epoch: a CUDA graph on
         the card, captured at its first call; eager on the CPU.  The
-        build count is bumped once per build, as a JAX trace bumps it."""
+        build count is bumped once per build, as a JAX trace bumps it.
+        ``epoch`` selects a pinned generation's table (the decode path);
+        None serves the current epoch."""
         key = (kind, bucket)
         # lock-free hot path: a GIL-atomic dict read, so the runtime's
         # dispatcher never stalls behind a user thread's flush()
-        table = self._steps if kind == "full" else self._epoch_state().steps
+        table = (self._steps if kind == "full"
+                 else self._epoch_state(epoch).steps)
         step = table.get(key)
         if step is not None:
             return step
         with self.lock:
             if key not in table:
                 head = self._head(kind, None if kind == "full"
-                                  else self._epoch_state())
+                                  else self._epoch_state(epoch))
                 embed = self.embed_fn
 
                 def fn(x):
                     return head(embed(x) if embed is not None else x)
 
-                def on_build():
-                    with self.lock:
-                        self.compile_counts[key] = \
-                            self.compile_counts.get(key, 0) + 1
+                table[key] = Step(fn, self.device, self._counter(key),
+                                  self.lock)
+            return table[key]
 
-                table[key] = Step(fn, self.device, on_build, self.lock)
+    def _counter(self, key) -> Callable[[], None]:
+        """The ``on_build`` hook of the step under ``key``."""
+        def on_build():
+            with self.lock:
+                self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
+        return on_build
+
+    def decode_logits(self, kind: str, tag: str, body: Callable,
+                      epoch: int | None = None) -> Step:
+        """The batched decode head entry: one fused step per (head kind,
+        ``tag``) running ``body`` (the model's pooled or paged decode
+        step) straight into this engine's head, so the WOL ranking inside
+        the token loop is the same kernel path the score buckets use.
+
+        ``body(params, tok, k, v, *ops) -> (hidden [B, d], k, v)`` writes
+        the step's KV into the pool's ``k``/``v`` in place; ``ops`` are
+        the layout's host operands — dense ``(lengths,)``, paged
+        ``(page_table, lengths)``.  The returned :class:`Step` maps
+        ``(params, tok, k, v, *ops)`` to ``(hidden, HeadOutput)``, with
+        ``tok_next = max(ids[:, 0], 0)`` written into ``tok`` on the
+        device, so a decode loop chains steps without a host round trip
+        (the JAX step returns ``tok_next``, ``k`` and ``v``; here they are
+        the caller's own tensors, updated in place).  ``tag`` names the step's shape (the
+        scheduler uses "decode[SxW]@cfg", paged "decode[SxW,pagedP]@cfg")
+        and keys the step table — builds land in
+        ``compile_counts[(kind, tag)]`` next to the score buckets.  LSS
+        decode steps live in their index epoch's table (``epoch`` pins a
+        draining generation, None serves the current one).
+
+        On the card the step is a CUDA graph over the pool's own slabs,
+        updated in place: the port's counterpart of the JAX step's
+        donation of the slabs on TPU.
+        """
+        key = (kind, tag)
+        table = (self._steps if kind == "full"
+                 else self._epoch_state(epoch).steps)
+        step = table.get(key)             # lock-free hot path, like _step
+        if step is not None:
+            return step
+        with self.lock:
+            if key not in table:
+                head = self._head(kind, None if kind == "full"
+                                  else self._epoch_state(epoch))
+
+                def fn(params, tok, k, v, *ops):
+                    hidden, _, _ = body(params, tok, k, v, *ops)
+                    ho = head(hidden.float())
+                    tok.copy_(ho.ids[:, 0].clamp(min=0))
+                    return hidden, ho
+
+                # (params, tok, k, v) bound; the warm-up's tokens undone
+                table[key] = Step(fn, self.device, self._counter(key),
+                                  self.lock, n_bound=4, restore=(1,))
             return table[key]
 
     # ------------------------------------------------------- score path --
     def rank(self, x, head: str | None = None, labels=None,
-             record: bool = True) -> HeadOutput:
+             record: bool = True, epoch: int | None = None) -> HeadOutput:
         """Rank one already-batched request group (rows = requests).
 
         Pads to the bucket, runs the (head, bucket) step, slices back to
         the true row count; returns tensors on the engine's device.
-        ``labels`` (int [B, NL], -1 padded) feed the recall metric.
+        ``labels`` (int [B, NL], -1 padded) feed the recall metric.  The
+        decode loop calls this with ``record=False`` and with ``epoch``
+        set to its pinned index generation, so prefill first tokens stay
+        consistent with its fused decode steps across an index swap.
         """
         kind = head or self.default_head
         n = tree_leaves(x)[0].shape[0]
@@ -335,7 +441,7 @@ class Engine:
         for chunk in self.batcher.plan(n):
             part = tree_map(
                 lambda leaf: leaf[chunk.start:chunk.start + chunk.size], x)
-            o = self._step(kind, chunk.bucket)(
+            o = self._step(kind, chunk.bucket, epoch)(
                 _pad_to_bucket(part, chunk.bucket))
             outs.append(tree_map(lambda leaf: leaf[:chunk.size], o))
         out = outs[0] if len(outs) == 1 else HeadOutput(
@@ -516,3 +622,133 @@ class WOLServer:
             ho = self.engine.rank(b, head=kind)
             out.append((ho.logits, ho.ids))
         return out, self.engine.metrics()
+
+
+class LMDecoder:
+    """Session-based LM decode; the per-token head is the Engine's.
+
+    A thin facade over a :class:`repro_torch.serve.decode.DecodeScheduler`:
+    ``generate`` submits one session per prompt row into a fixed-slot
+    scheduler and blocks for the streams, so the blocking API and the
+    AsyncRuntime's streaming path run the SAME fused ``decode_step_pooled
+    | decode_step_paged -> head`` step — one build per (head, pool shape)
+    across all ``generate`` calls and all sessions, and blocking results
+    are bit-identical to interleaved ones.
+
+    ``max_streams`` fixes the slot count (the fused step's row shape);
+    ``max_len`` fixes the pool cache width.  Both are graph shapes AND
+    numeric shapes (reductions differ across shapes at the ulp level),
+    so pin them when comparing runs.  ``max_len=None`` sizes the pool
+    lazily from the first ``generate`` call (growing it later rebuilds).
+    The engine runs on the parameters' device; the JAX package's
+    ``impl``, ``dedup``, ``slab_dtype`` and ``spmd`` arguments are the
+    device's choice, ``lss_cfg``'s, and the multi-GPU slice's here.
+    """
+
+    def __init__(self, params: dict, cfg, lss_cfg: LSSConfig | None = None,
+                 *, max_streams: int = 8, max_len: int | None = None,
+                 kv_layout: str | None = None,
+                 kv_page_tokens: int | None = None,
+                 kv_pages: int | None = None):
+        from repro_torch.models import transformer as T
+        self.T = T
+        self.params = params
+        self.cfg = cfg
+        self.lss_cfg = lss_cfg
+        self.max_streams = max_streams
+        self._max_len = max_len
+        # KV storage layout knobs, handed to each scheduler's pool:
+        # layout dense|paged (None -> kv_pool.layout strategy /
+        # $REPRO_KV_LAYOUT), page size, and an optional arena page cap
+        self.kv_layout = kv_layout
+        self.kv_page_tokens = kv_page_tokens
+        self.kv_pages = kv_pages
+        self._scheds: dict[str, Any] = {}
+        self.engine = Engine(None, self.head_weights().float(), None,
+                             lss_cfg or LSSConfig(), top_k=1, head="full")
+
+    @property
+    def index(self):
+        return self.engine.index
+
+    @property
+    def device(self) -> torch.device:
+        return self.engine.device
+
+    def head_weights(self) -> torch.Tensor:
+        return (self.params["embed"] if self.cfg.tie_embeddings
+                else self.params["lm_head"])
+
+    def fit_lss(self, generator: torch.Generator, calib_tokens,
+                verbose: bool = False) -> dict:
+        """Calibrate the LSS index from the hidden states of the prompt
+        pass; labels are the observed next tokens (teacher forcing —
+        exactly the paper's 'training data through the trained model'
+        recipe)."""
+        toks = torch.as_tensor(np.asarray(host_numpy(calib_tokens)),
+                               device=self.device)
+        with torch.no_grad():
+            hidden, _, _ = self.T.forward(self.params, toks, self.cfg,
+                                          mode="train")
+        q = hidden[:, :-1].reshape(-1, hidden.shape[-1]).float()
+        labels = toks[:, 1:].reshape(-1, 1).int()
+        return self.engine.fit_from_queries(generator, q, labels,
+                                            verbose=verbose)
+
+    def scheduler(self, head: str | None = None, min_len: int | None = None):
+        """The per-head-kind DecodeScheduler (built lazily, reused across
+        ``generate`` calls and by the AsyncRuntime's decode path).
+
+        A ``min_len`` beyond the current pool width rebuilds the
+        scheduler ONLY when the old one is idle and unattached; a
+        scheduler an AsyncRuntime owns (or one with sessions in flight)
+        must not be swapped out from under it — that raises instead, so
+        callers size ``max_len`` up front.
+        """
+        from repro_torch.serve.decode import DecodeScheduler
+        kind = head or self.engine.default_head
+        if kind != "full" and self.engine.index is None:
+            raise ValueError("fit_lss() first")
+        need = max(min_len or 0, self._max_len or 0)
+        sched = self._scheds.get(kind)
+        if sched is not None and sched.max_len >= need:
+            return sched
+        if sched is not None:
+            if sched.on_session_done is not None or not sched.idle:
+                raise ValueError(
+                    f"head {kind!r} scheduler has pool width "
+                    f"{sched.max_len} < required {need} but is busy or "
+                    f"runtime-attached; construct the LMDecoder with "
+                    f"max_len >= {need} instead of growing it mid-flight")
+            # outgrown and safely replaceable: drop its fused step (and
+            # the pool tensors its graph holds) from the engine's table
+            self.engine.drop_step(kind, sched._tag)
+        self._max_len = (max(need, 64) if self._max_len is None
+                         else max(self._max_len, need))
+        sched = DecodeScheduler(self.engine, self.params, self.cfg,
+                                max_streams=self.max_streams,
+                                max_len=self._max_len, head=kind,
+                                kv_layout=self.kv_layout,
+                                kv_page_tokens=self.kv_page_tokens,
+                                kv_pages=self.kv_pages)
+        self._scheds[kind] = sched
+        return sched
+
+    def generate(self, prompt, steps: int, head: str | None = None,
+                 timeout: float | None = None) -> torch.Tensor:
+        """Greedy decode.  prompt [B, S] -> int32 tokens [B, steps] (on
+        the CPU).
+
+        ``head`` is ``full`` or ``lss`` (None: the engine's default,
+        ``full``).  Rows run as sessions through the slot pool:
+        ``B > max_streams`` decodes in waves of ``max_streams``.  Safe while an AsyncRuntime serves the same
+        scheduler — ticks serialize, and this call returns once ITS
+        streams finish, leaving other producers' sessions in flight."""
+        kind = head or self.engine.default_head
+        rows = np.asarray(host_numpy(prompt), np.int32)
+        sched = self.scheduler(head=kind, min_len=rows.shape[1] + steps)
+        streams = [sched.submit(rows[i], max_new_tokens=steps)
+                   for i in range(rows.shape[0])]
+        sched.run(timeout=timeout,
+                  until=lambda: all(s.done() for s in streams))
+        return torch.from_numpy(np.stack([s.result() for s in streams]))

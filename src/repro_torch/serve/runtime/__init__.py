@@ -1,6 +1,7 @@
 """Async serving runtime: admission queue + futures + overlapped
 host/device pipeline over a (thread-safe) :class:`~repro_torch.serve.Engine`
-(counterpart of ``repro.serve.runtime``; the rank request kind).
+(counterpart of ``repro.serve.runtime``: the rank request kind and the
+decode kind, over a ``DecodeScheduler``).
 
   * ``future``  — :class:`RankFuture` and the shed-exception hierarchy.
   * ``queue``   — :class:`AdmissionQueue` (bounded, block | shed).
@@ -27,11 +28,13 @@ from repro_torch.serve.runtime.future import (DeadlineExceededError,
                                               RuntimeClosedError, ShedError)
 from repro_torch.serve.runtime.queue import POLICIES, AdmissionQueue
 from repro_torch.serve.runtime.runtime import (AsyncRuntime, RuntimeStats,
+                                               submit_decode_open_loop,
                                                submit_open_loop)
 
 __all__ = [
     "AsyncRuntime", "RuntimeStats", "RankFuture",
     "AdmissionQueue", "POLICIES", "submit_open_loop",
+    "submit_decode_open_loop",
     "ShedError", "QueueFullError", "DeadlineExceededError",
     "RuntimeClosedError",
 ]

@@ -1,5 +1,5 @@
 """AsyncRuntime: the thread/queue front-end over a synchronous Engine
-(counterpart of ``repro.serve.runtime.runtime``'s rank path).
+(counterpart of ``repro.serve.runtime.runtime``).
 
 The Engine is a *library* — ``submit``/``flush`` block the caller, so
 host-side batching, padding, and device execution serialize.  The
@@ -43,12 +43,20 @@ reports queue depth, shed counts (capacity vs deadline, separately),
 batch occupancy, and latency percentiles that INCLUDE queue wait — the
 number a client actually experiences, not just device wall time.
 
-The decode request kind (``submit_decode``, ``scheduler=``) comes with
-the port's streaming-decode slice.
+Streaming decode is the runtime's SECOND request kind: construct with a
+``DecodeScheduler`` (see ``repro_torch.serve.decode``) and
+``submit_decode`` returns a per-token :class:`TokenStream` future.
+Decode sessions go through the SAME admission queue — block|shed
+backpressure and per-request deadlines apply exactly as for scoring —
+and the dispatcher ticks the scheduler between rank chunks, so one
+runtime serves scoring traffic and many concurrent decode streams off
+one engine.  ``stats()`` grows per-token latency: time-to-first-token
+and inter-token p50/p95/p99, plus decode-slot occupancy.
 """
 
 from __future__ import annotations
 
+import math
 import queue as _queue
 import threading
 import time
@@ -68,7 +76,8 @@ from repro_torch.serve.runtime.future import (DeadlineExceededError,
 from repro_torch.serve.runtime.queue import POLICIES, AdmissionQueue
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["AsyncRuntime", "RuntimeStats", "submit_open_loop"]
+__all__ = ["AsyncRuntime", "RuntimeStats", "submit_open_loop",
+           "submit_decode_open_loop"]
 
 _SENTINEL = object()
 # device chunks in flight past the dispatcher: the next chunk is stacked
@@ -82,7 +91,17 @@ class RuntimeStats(NamedTuple):
     Shed accounting is split by CAUSE: ``n_shed_queue`` (capacity — the
     admission queue refused the request) vs ``n_shed_deadline`` (the
     request was admitted but already late when the dispatcher reached
-    it)."""
+    it).  Both cover scoring requests and decode sessions.  The
+    ``n_decode_*`` / ``ttft_*`` / ``itl_*`` fields are zero/nan unless
+    the runtime was built with a :class:`DecodeScheduler`.
+
+    Scope note: ``n_decode_sessions``/``n_decode_done`` count THIS
+    runtime's admissions, while the token/latency/occupancy decode
+    fields snapshot the attached scheduler's whole stats window — if
+    another producer (a concurrent blocking ``generate()``) shares the
+    scheduler, its traffic is included there; call
+    ``scheduler.reset_stats()`` between measured segments.
+    """
 
     n_submitted: int             # futures handed out (incl. shed)
     n_completed: int             # resolved with a RankResult
@@ -97,14 +116,33 @@ class RuntimeStats(NamedTuple):
     device_ms_per_batch: float   # mean non-overlapping device wall/chunk
     wall_s: float                # first submit -> last completion
     throughput_rps: float        # n_completed / wall_s
+    # ------------------------------------------------- streaming decode --
+    n_decode_sessions: int = 0   # decode sessions submitted (incl. shed)
+    n_decode_done: int = 0       # sessions that reached a terminal state
+    n_decode_tokens: int = 0     # tokens streamed across all sessions
+    ttft_p50_ms: float = math.nan   # submit -> first token (queue incl.)
+    ttft_p95_ms: float = math.nan
+    ttft_p99_ms: float = math.nan
+    itl_p50_ms: float = math.nan    # inter-token latency
+    itl_p95_ms: float = math.nan
+    itl_p99_ms: float = math.nan
+    decode_slot_occupancy: float = 0.0   # mean active/max_streams per step
+    decode_tokens_per_s: float = 0.0
+    n_prefill_skipped: int = 0      # full-prompt prefix-cache hits
+    n_prefill_compiles: int = 0     # prefill builds (one per bucket)
+    n_prefill_buckets: int = 0      # distinct power-of-two buckets
+    prefix_hit_rate: float = math.nan   # shared / shareable prompt pages
+    kv_pages_in_use: int = 0        # paged KV layout: live pages
+    kv_peak_pages: int = 0          # paged KV layout: high-water mark
 
 
 def _paced_submit(n: int, qps: float, seed: int, submit
                   ) -> tuple[list, np.ndarray]:
-    """The open-loop pacer: draw Poisson arrival offsets for offered rate
-    ``qps`` (``qps <= 0`` = burst, everything at t=0), sleep to each
-    offset, call ``submit(i)`` — and never wait for results, so queueing
-    delay stays visible instead of being hidden by a closed loop."""
+    """The open-loop pacer both load shapes share: draw Poisson arrival
+    offsets for offered rate ``qps`` (``qps <= 0`` = burst, everything at
+    t=0), sleep to each offset, call ``submit(i)`` — and never wait for
+    results, so queueing delay stays visible instead of being hidden by a
+    closed loop."""
     rng = np.random.default_rng(seed)
     arrivals = (np.zeros(n) if qps <= 0
                 else np.cumsum(rng.exponential(1.0 / qps, n)))
@@ -130,10 +168,28 @@ def submit_open_loop(runtime: "AsyncRuntime", xs, qps: float, *,
                                  None if labels is None else labels[i]))
 
 
+def submit_decode_open_loop(runtime: "AsyncRuntime", prompts, qps: float, *,
+                            max_new_tokens: int, seed: int = 0,
+                            eos_id: int | None = None
+                            ) -> tuple[list, np.ndarray]:
+    """Open-loop decode load: start session i (``prompts[i]``, a 1-D
+    token row) at Poisson arrival times for offered SESSION rate ``qps``
+    (``qps <= 0`` = burst).  Returns (TokenStreams, arrival offsets)."""
+    return _paced_submit(
+        len(prompts), qps, seed,
+        lambda i: runtime.submit_decode(prompts[i],
+                                        max_new_tokens=max_new_tokens,
+                                        eos_id=eos_id))
+
+
 class _Work(NamedTuple):
     future: RankFuture
     x: Any                       # request pytree (no batch dim, numpy)
     labels: np.ndarray | None
+
+
+class _DecodeWork(NamedTuple):
+    session: Any                 # DecodeSession awaiting scheduler admission
 
 
 class AsyncRuntime:
@@ -148,7 +204,10 @@ class AsyncRuntime:
         ``runtime.queue``).
       default_deadline_s: per-request deadline applied when ``submit``
         does not pass one; None = no deadline.
-      scheduler: the decode request kind; not ported yet, must be None.
+      scheduler: a ``repro_torch.serve.decode.DecodeScheduler`` enabling
+        the decode request kind (``submit_decode``); the dispatcher ticks
+        it between rank chunks.  Other producers may share it (a
+        blocking ``generate()``: ticks serialise).
       start: spawn the worker threads now; ``start=False`` lets tests
         and callers stage a backlog first (``start()`` later).
     """
@@ -158,16 +217,21 @@ class AsyncRuntime:
                  default_deadline_s: float | None = None,
                  scheduler=None, start: bool = True,
                  close_timeout_s: float | None = None):
-        if scheduler is not None:
-            raise ValueError(
-                "the decode request kind (scheduler=) comes with the "
-                "port's streaming-decode slice; this runtime ranks only")
         if policy not in POLICIES:
             raise ValueError(f"policy must be one of {POLICIES}, "
                              f"got {policy!r}")
         self.engine = engine
         self.head = head or engine.default_head
         self.policy = policy
+        self.scheduler = scheduler
+        if scheduler is not None:
+            if scheduler.on_session_done is not None:
+                raise ValueError(
+                    "scheduler is already attached to another "
+                    "AsyncRuntime — close() that runtime first (it "
+                    "detaches on close); silently re-attaching would "
+                    "break the first runtime's decode accounting")
+            scheduler.on_session_done = self._on_decode_done
         self.default_deadline_s = default_deadline_s
         # bound for the ``with``-exit close(): an unbounded drain on a
         # wedged dispatcher would block __exit__ forever
@@ -189,6 +253,10 @@ class AsyncRuntime:
         self._n_shed_queue = 0
         self._n_shed_deadline = 0
         self._n_failed = 0
+        self._n_decode_submitted = 0
+        self._n_decode_admitted = 0
+        self._n_decode_done = 0
+        self._n_decode_shed_deadline = 0
         self._n_batches = 0
         self._occupancy_sum = 0.0
         self.obs = obs.MetricsRegistry(scope_prefix="runtime")
@@ -227,8 +295,13 @@ class AsyncRuntime:
 
     # -------------------------------------------------------------- pending
     def _pending(self) -> int:
+        # deadline-shed decode sessions are already inside _n_decode_done
+        # (the session-done hook counts every terminal state), so only
+        # the RANK portion of the deadline sheds offsets _n_admitted here
         return (self._n_admitted - self._n_completed
-                - self._n_shed_deadline - self._n_failed)
+                - (self._n_shed_deadline - self._n_decode_shed_deadline)
+                - self._n_failed
+                + self._n_decode_admitted - self._n_decode_done)
 
     def drain(self, timeout: float | None = None) -> None:
         """Block until every admitted request has been resolved."""
@@ -267,9 +340,16 @@ class AsyncRuntime:
             self._stop.set()
             exc = RuntimeClosedError("runtime closed")
             for w in self._q.close():           # undrained leftovers
-                self._fail(w.future, exc)
+                self._fail_admitted(w, exc)
+            if self.scheduler is not None:      # admitted, not yet joined
+                self._count_decode_failed(self.scheduler.fail_pending(
+                    exc, only=lambda s: s.owner is self))
             for t in self._threads:
                 t.join(timeout=5.0)
+            if (self.scheduler is not None
+                    and self.scheduler.on_session_done
+                    == self._on_decode_done):
+                self.scheduler.on_session_done = None   # detach the hook
 
     # --------------------------------------------------------------- submit
     def submit(self, x, labels=None, *, deadline_s: float | None = None,
@@ -329,12 +409,103 @@ class AsyncRuntime:
                             None if lab is None else lab[i], **kw)
                 for i in range(n)]
 
+    # ------------------------------------------------------- decode submit
+    def submit_decode(self, prompt, *, max_new_tokens: int,
+                      eos_id: int | None = None,
+                      deadline_s: float | None = None,
+                      timeout: float | None = None):
+        """Admit one decode session (1-D prompt tokens); returns its
+        :class:`~repro_torch.serve.decode.TokenStream`, which resolves
+        token by token as the scheduler interleaves the session with
+        every other in-flight stream.  Admission control matches
+        ``submit``: a full queue blocks or fails the stream with
+        :class:`QueueFullError`, and a ``deadline_s`` that expires before
+        the session reaches a pool slot sheds it with
+        :class:`DeadlineExceededError` (once streaming, a session runs to
+        completion)."""
+        if self.scheduler is None:
+            raise RuntimeError(
+                "this runtime has no DecodeScheduler: pass scheduler= "
+                "at construction to enable the decode request kind")
+        t_sub = time.perf_counter()
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        deadline = None if deadline_s is None else t_sub + deadline_s
+        session = self.scheduler.make_session(
+            prompt, max_new_tokens, eos_id=eos_id, t_submit=t_sub,
+            deadline=deadline)
+        session.owner = self
+        # closes in TokenStream.finish/fail — every terminal decode path
+        session.stream.span = obs.start_span(
+            "decode_session", sid=session.sid,
+            prompt_len=int(session.prompt.shape[0]),
+            max_new_tokens=max_new_tokens)
+        with self._mu:
+            self._n_decode_submitted += 1
+            if self._t_first is None:
+                self._t_first = t_sub
+        if self._closed:
+            session.stream.fail(RuntimeClosedError("runtime closed"))
+            with self._mu:
+                self._n_shed_queue += 1
+            return session.stream
+        with self._mu:
+            self._n_decode_admitted += 1
+        if not self._q.put(_DecodeWork(session), timeout=timeout):
+            with self._drained:
+                self._n_decode_admitted -= 1
+                self._n_shed_queue += 1
+                self._drained.notify_all()
+            session.stream.fail(
+                RuntimeClosedError("runtime closed") if self._closed
+                else QueueFullError(
+                    f"queue full (depth bound {self._q.maxsize}, "
+                    f"policy {self.policy})"))
+        return session.stream
+
+    def _on_decode_done(self, session, reason: str) -> None:
+        """Scheduler hook: a session reached a terminal state (finished,
+        or shed at slot-join time).  Sessions another producer submitted
+        to the shared scheduler (e.g. a concurrent blocking generate())
+        are not this runtime's accounting problem."""
+        if session.owner is not self:
+            return
+        with self._drained:
+            self._n_decode_done += 1
+            if reason == "shed_deadline":
+                self._n_shed_deadline += 1
+                self._n_decode_shed_deadline += 1
+            self._drained.notify_all()
+
     # ------------------------------------------------------------ dispatcher
+    def _sched_busy(self) -> bool:
+        return self.scheduler is not None and not self.scheduler.idle
+
+    def _route_decode(self, works: list) -> list:
+        """Hand decode sessions to the scheduler; return the rank works."""
+        if self.scheduler is None:
+            return works
+        for w in works:
+            if isinstance(w, _DecodeWork):
+                self.scheduler.add_session(w.session)
+        return [w for w in works if not isinstance(w, _DecodeWork)]
+
     def _dispatch_loop(self) -> None:
         try:
             batcher = self.engine.batcher
-            while not (self._stop.is_set() and len(self._q) == 0):
-                works = self._q.take(batcher.max_bucket, timeout=0.05)
+            while not (self._stop.is_set() and len(self._q) == 0
+                       and not self._sched_busy()):
+                # an active decode pipeline paces the loop itself (a tick
+                # waits on the lagged step), so don't linger on the
+                # queue; decode sessions route to the scheduler as soon
+                # as they are taken
+                works = self._route_decode(self._q.take(
+                    batcher.max_bucket,
+                    timeout=0.0 if self._sched_busy() else 0.05))
+                if self.scheduler is not None:
+                    # admit + one fused step + resolve the previous
+                    # step's tokens; overlaps the rank chunk below
+                    self.scheduler.tick()
                 if not works:
                     continue
                 live = self._shed_late(works)
@@ -380,6 +551,16 @@ class AsyncRuntime:
                 self._put_done((live, host, bucket, t0, span))
         except BaseException as e:              # fail loudly, not silently
             self._abort(e)
+            if self.scheduler is not None:
+                # this runtime will never tick again: resolve ITS
+                # streams so consumers see the failure instead of
+                # hanging (other producers' sessions stay alive — their
+                # own run() loops still tick)
+                self._count_decode_failed(self.scheduler.fail_all(
+                    RuntimeError("runtime worker died"),
+                    only=lambda s: s.owner is self))
+                if self.scheduler.on_session_done == self._on_decode_done:
+                    self.scheduler.on_session_done = None   # detach: dead
         finally:
             try:
                 self._done_q.put(_SENTINEL, timeout=5.0)
@@ -471,6 +652,22 @@ class AsyncRuntime:
             self._abort(e)
 
     # ---------------------------------------------------------------- misc
+    def _fail_admitted(self, w, exc: BaseException) -> None:
+        """Fail one admitted work item of either kind."""
+        if isinstance(w, _DecodeWork):
+            w.session.stream.fail(exc)
+            self._count_decode_failed([w.session])
+        else:
+            self._fail(w.future, exc)
+
+    def _count_decode_failed(self, sessions: list) -> None:
+        mine = [s for s in sessions if s.owner is self]
+        if not mine:
+            return
+        with self._drained:
+            self._n_decode_done += len(mine)
+            self._drained.notify_all()
+
     def _fail(self, fut: RankFuture, exc: BaseException,
               kind: str = "closed") -> None:
         if not fut.done():
@@ -490,7 +687,7 @@ class AsyncRuntime:
             if self._worker_exc is None:
                 self._worker_exc = exc
         for w in self._q.close():
-            self._fail(w.future, RuntimeError("runtime worker died"))
+            self._fail_admitted(w, RuntimeError("runtime worker died"))
         while True:                     # unjam a blocked dispatcher put
             try:
                 item = self._done_q.get_nowait()
@@ -512,8 +709,16 @@ class AsyncRuntime:
         reg.gauge("runtime_shed_deadline_total").set(s.n_shed_deadline)
         reg.gauge("runtime_batch_occupancy").set(s.avg_batch_occupancy)
         reg.gauge("runtime_throughput_rps").set(s.throughput_rps)
+        if self.scheduler is not None:
+            reg.gauge("decode_sessions_total").set(s.n_decode_sessions)
+            reg.gauge("decode_tokens_total").set(s.n_decode_tokens)
+            reg.gauge("decode_tokens_per_s").set(s.decode_tokens_per_s)
+            reg.gauge("decode_slot_occupancy").set(s.decode_slot_occupancy)
+            reg.gauge("decode_prefix_hit_rate").set(s.prefix_hit_rate)
+            reg.gauge("decode_kv_pages_in_use").set(s.kv_pages_in_use)
 
     def stats(self) -> RuntimeStats:
+        ds = None if self.scheduler is None else self.scheduler.stats()
         # quantile math runs on the histograms' own bounded reservoirs —
         # NEVER under self._mu, so a stats() poll cannot stall the
         # dispatcher/completion threads no matter the window size
@@ -523,7 +728,25 @@ class AsyncRuntime:
             wall = ((self._t_last - self._t_first)
                     if self._t_first is not None and self._t_last is not None
                     else 0.0)
+            decode = {} if ds is None else dict(
+                n_decode_sessions=self._n_decode_submitted,
+                n_decode_done=self._n_decode_done,
+                n_decode_tokens=ds.n_tokens,
+                ttft_p50_ms=ds.ttft_p50_ms, ttft_p95_ms=ds.ttft_p95_ms,
+                ttft_p99_ms=ds.ttft_p99_ms,
+                itl_p50_ms=ds.itl_p50_ms, itl_p95_ms=ds.itl_p95_ms,
+                itl_p99_ms=ds.itl_p99_ms,
+                decode_slot_occupancy=ds.slot_occupancy,
+                decode_tokens_per_s=ds.tokens_per_s,
+                n_prefill_skipped=ds.n_prefill_skipped,
+                n_prefill_compiles=ds.n_prefill_compiles,
+                n_prefill_buckets=ds.n_prefill_buckets,
+                prefix_hit_rate=ds.prefix_hit_rate,
+                kv_pages_in_use=ds.kv_pages_in_use,
+                kv_peak_pages=ds.kv_peak_pages,
+            )
             return RuntimeStats(
+                **decode,
                 n_submitted=self._n_submitted,
                 n_completed=self._n_completed,
                 n_shed_queue=self._n_shed_queue,

@@ -278,8 +278,26 @@ def test_malformed_request_fails_its_chunk_only():
 
 
 def test_scheduler_waits_for_the_decode_slice():
+    """The decode request kind needs a scheduler, and a scheduler serves
+    one runtime at a time (it detaches on close)."""
+    from repro_torch.serve.decode import DecodeScheduler
+    from repro_torch.models.transformer import TransformerConfig, init_params
+    rt = AsyncRuntime(_engine(), start=False)
+    with pytest.raises(RuntimeError, match="DecodeScheduler"):
+        rt.submit_decode(np.arange(4), max_new_tokens=2)
+    rt.close(timeout=30.0)
+    cfg = TransformerConfig(name="t", n_layers=1, d_model=32, n_heads=2,
+                            n_kv_heads=1, head_dim=16, d_ff=32, vocab=512,
+                            dtype=torch.float32)
+    eng = _engine()
+    sched = DecodeScheduler(eng, init_params(torch.Generator().manual_seed(0),
+                                             cfg, device="cpu"),
+                            cfg, max_streams=2, max_len=16, head="full")
+    first = AsyncRuntime(eng, scheduler=sched, start=False)
     with pytest.raises(ValueError, match="decode"):
-        AsyncRuntime(_engine(), scheduler=object(), start=False)
+        AsyncRuntime(eng, scheduler=sched, start=False)
+    first.close(timeout=30.0)
+    AsyncRuntime(eng, scheduler=sched, start=False).close(timeout=30.0)
 
 
 # ----------------------------------------------------------- drain / close --

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card,
-and the serving engine's steps captured as CUDA graphs.
+the serving engine's steps captured as CUDA graphs, and the decode
+scheduler's fused step (a CUDA graph over the KV pool, updated in place).
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use) and
 skip without one.  They import no JAX, so they run where only PyTorch is
@@ -268,6 +269,28 @@ def test_captured_step_equals_eager_step(cuda, kind):
     assert eng.compile_counts[(kind, 8)] == 1
 
 
+def test_capture_pauses_the_collector(cuda):
+    """No automatic garbage collection inside a capture: a collection
+    there could destroy a dead engine's graph (an engine and its steps
+    form a reference cycle), which this thread may not do while it
+    captures, and which invalidates the capture."""
+    import gc
+    eng = _serving_engine(cuda)
+    step = eng._step("lss", 8)
+    x = torch.randn(8, 32, generator=torch.Generator(cuda).manual_seed(6),
+                    device=cuda)
+    fn, seen = step.fn, []
+
+    def watched(x):
+        seen.append(gc.isenabled())
+        return fn(x)
+
+    step.fn = watched
+    assert gc.isenabled()
+    step(x)                                 # warm-up, then capture
+    assert step.captured and seen == [True, False] and gc.isenabled()
+
+
 def test_two_threads_replaying_one_step_get_their_own_rows(cuda):
     import threading
     eng = _serving_engine(cuda)
@@ -295,3 +318,153 @@ def test_two_threads_replaying_one_step_get_their_own_rows(cuda):
         for out in got[i]:
             assert torch.equal(out.ids, want[i].ids)
             assert torch.equal(out.logits, want[i].logits)
+
+
+# ------------------------------------------------ the decode step's graph --
+
+def _decoder(cuda, layout, max_streams=4, max_len=64, lss=True):
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import LMDecoder
+    cfg = T.TransformerConfig(name="gpu-decode", n_layers=2, d_model=64,
+                              n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                              vocab=4096, qkv_bias=True, tie_embeddings=True,
+                              dtype=torch.bfloat16, kv_chunk=32)
+    params = T.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                           device=cuda)
+    dec = LMDecoder(params, cfg, LSSConfig(k_bits=6, n_tables=1),
+                    max_streams=max_streams, max_len=max_len,
+                    kv_layout=layout, kv_page_tokens=16)
+    if lss:
+        dec.engine.fit_random(torch.Generator(cuda).manual_seed(1))
+    return dec
+
+
+def _prompts(n, vocab=4096, seed=2):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(5, 30))).astype(np.int32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("head", ["lss", "full"])
+def test_decode_step_replay_equals_eager_step(cuda, layout, head):
+    """A replay of the fused decode step gives the bits of the same step
+    run eagerly on copies of its inputs.  The lss_topk wrapper counts the
+    step's warm-up and capture (and the first-token step's) and no
+    replay; the profiler sees one lss_topk kernel on the device a
+    replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dec = _decoder(cuda, layout)
+    sched = dec.scheduler(head=head)
+    for p in _prompts(4):
+        sched.submit(p, max_new_tokens=20)
+    before = lss_topk_cuda.launches
+    sched.tick()                            # 4 joins, step 1 (capture)
+    per = 1 if head == "lss" else 0
+    assert lss_topk_cuda.launches - before == 4 * per
+    assert sched.decode_step().captured
+    ops = sched.pool.step_operands()
+    snap = [sched.tok.clone(), ops[0].clone(), ops[1].clone(),
+            *(torch.from_numpy(o).to(cuda) for o in ops[2:])]
+    sched.tick()                            # step 2, replayed
+    got_hidden, got = sched._inflight.out
+    with torch.no_grad():
+        want_hidden, want = sched.decode_step().fn(dec.params, *snap)
+    torch.cuda.synchronize()
+    assert torch.equal(got_hidden, want_hidden)
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.logits, want.logits)
+    assert torch.equal(snap[0], sched.tok)  # the same next tokens
+    before = lss_topk_cuda.launches         # (the eager step launched too)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sched.tick()
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "lss_topk" in e.name)
+    assert kernels == 3 * per
+    assert lss_topk_cuda.launches == before  # replays call no wrapper
+    sched.run(timeout=120.0)
+
+
+@pytest.mark.parametrize("head", ["lss", "full"])
+def test_inplace_kv_under_the_pipeline_with_slots_rejoining(cuda, head):
+    """Six sessions with staggered budgets through two slots: each freed
+    slot is rejoined while the previous step is still in flight, and the
+    KV is written in place by the graph and by the joins.  The tokens are
+    those of one-at-a-time blocking generate, and the paged layout's are
+    the dense layout's."""
+    prompts = _prompts(6, seed=3)
+    budgets = [3, 9, 5, 12, 4, 7]
+    runs = {}
+    for layout in ("dense", "paged"):
+        dec = _decoder(cuda, layout, max_streams=2)
+        seq = [dec.generate(p[None], steps=b, head=head,
+                            timeout=120.0).numpy()[0]
+               for p, b in zip(prompts, budgets)]
+        sched = dec.scheduler(head=head)
+        streams = [sched.submit(p, max_new_tokens=b)
+                   for p, b in zip(prompts, budgets)]
+        sched.run(timeout=120.0)
+        for i, st in enumerate(streams):
+            np.testing.assert_array_equal(st.result(timeout=5.0), seq[i],
+                                          err_msg=f"{layout} session {i}")
+        assert dec.engine.compile_counts[(head, sched._tag)] == 1
+        runs[layout] = seq
+    for a, b in zip(runs["dense"], runs["paged"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_pool_growth_drops_the_outgrown_graph(cuda, layout):
+    """A decoder sized at its first ``generate`` (``max_len=None``) and
+    grown by a longer one: the outgrown step, whose graph holds the old
+    pool's slabs, leaves the engine's table, the grown step is captured
+    over the new pool, and its tokens are those of a decoder built at
+    that width."""
+    rng = np.random.default_rng(4)
+    short = rng.integers(0, 4096, 20).astype(np.int32)[None]
+    long = rng.integers(0, 4096, 60).astype(np.int32)[None]
+    dec = _decoder(cuda, layout, max_len=None)
+    dec.generate(short, steps=8, head="lss", timeout=120.0)
+    small = dec.scheduler("lss")
+    assert small.max_len == 64 and small.decode_step().captured
+    got = dec.generate(long, steps=10, head="lss", timeout=120.0).numpy()
+    grown = dec.scheduler("lss")
+    table = dec.engine._epoch_state().steps
+    assert grown.max_len == 70 and ("lss", small._tag) not in table
+    assert table[("lss", grown._tag)].captured
+    want = _decoder(cuda, layout, max_len=70).generate(
+        long, steps=10, head="lss", timeout=120.0).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bsz", [1, 8])
+def test_lss_topk_at_the_decode_shape(cuda, bsz):
+    """Qwen2-0.5B's decode head: d = 896 + 1, K = 10, L = 1, P = 304 (a
+    slab row of 3,588 B, not a multiple of 16), on a random index."""
+    d, k_bits, n_tables, cap, m = 897, 10, 1, 304, 151936
+    g = torch.Generator(cuda).manual_seed(11)
+    q = augment_queries(torch.randn(bsz, d - 1, generator=g, device=cuda))
+    theta = torch.randn(d, k_bits * n_tables, generator=g, device=cuda)
+    tids = torch.randint(-1, m, (n_tables, 2 ** k_bits, cap), generator=g,
+                         device=cuda, dtype=torch.int32)
+    wb = torch.randn(n_tables, 2 ** k_bits, cap, d, generator=g,
+                     device=cuda)
+    wb[tids < 0] = 0.0
+    before = lss_topk_cuda.launches
+    got = lss_topk(q, theta, tids, wb, top_k=1)
+    assert lss_topk_cuda.launches == before + 1
+    want = lss_topk_ref(q, theta, tids, wb, top_k=2)
+    torch.cuda.synchronize()
+    rows = margin_rows(q, theta)
+    assert_ints_equal(got[3], want[3], rows=rows, what="cand")
+    assert_ints_equal(got[2], want[2], rows=rows, what="sample")
+    assert_close(got[0], want[0][:, :1], rtol=1e-4, atol=1e-4, rows=rows,
+                 what="top_logits")
+    assert_topk_ids_equal(got[1], want[1][:, :1], want[0][:, :1], 1e-4,
+                          rows=rows, next_logit=want[0][:, 1],
+                          what="top_ids")

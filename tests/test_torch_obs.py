@@ -4,8 +4,8 @@ as the JAX package's, whose quantiles they must equal), registry
 semantics, the no-op mode, the Prometheus/JSON/trace exporters (the same
 text as the JAX package's for the same registry), span statuses on every
 failure path of the port's runtime, and the online recall auditor
-against an offline brute-force rerank.  The KV-OOM span test waits for
-the port's decode slice."""
+against an offline brute-force rerank, and the KV-OOM span of a decode
+session shed at a page boundary."""
 
 import json
 import threading
@@ -29,6 +29,7 @@ from repro_torch.obs.metrics import NOOP_METRIC  # noqa: E402
 from repro_torch.obs.tracing import NOOP_SPAN  # noqa: E402
 from repro_torch.serve import (AsyncRuntime,  # noqa: E402
                                DeadlineExceededError, Engine,
+                               KVPoolExhaustedError, LMDecoder,
                                RuntimeClosedError)
 from tools.check_metrics import parse_exposition  # noqa: E402
 
@@ -341,6 +342,38 @@ def test_chunk_fault_spans_end_with_error_and_isolate():
 
 
 # --------------------------------------------------------- recall audit --
+
+def test_kv_oom_shed_span_and_event():
+    """A decode session starved at a page boundary fails with
+    KVPoolExhaustedError: its decode_session span must end shed_kv_oom,
+    the survivor's must end ok, and the shed_kv_oom instant event must
+    land in the trace."""
+    from repro_torch.data.synthetic import lm_dataset
+    from repro_torch.models import transformer as T
+    cfg = T.TransformerConfig(name="tp-obs", n_layers=2, d_model=32,
+                              n_heads=2, n_kv_heads=2, head_dim=16,
+                              d_ff=64, vocab=256, dtype=torch.float32,
+                              kv_chunk=32)
+    params = T.init_params(torch.Generator().manual_seed(3), cfg,
+                           device="cpu")
+    toks = lm_dataset(0, 8 * 17, 256, 17)
+    dec = LMDecoder(params, cfg, max_streams=2, max_len=16,
+                    kv_layout="paged", kv_page_tokens=4, kv_pages=4)
+    sched = dec.scheduler(head="full")
+    rt = AsyncRuntime(dec.engine, scheduler=sched, start=False)
+    starved = rt.submit_decode(toks[0, :3], max_new_tokens=10)
+    survivor = rt.submit_decode(toks[1, :5], max_new_tokens=2)
+    rt.start()
+    rt.drain(timeout=120.0)
+    rt.close(timeout=120.0)
+    assert isinstance(starved.exception(timeout=5.0), KVPoolExhaustedError)
+    assert starved.span.status == "shed_kv_oom"
+    assert survivor.finish_reason == "max_tokens"
+    assert survivor.span.status == "ok"
+    oom_events = [e for e in obs.trace_export()["traceEvents"]
+                  if e["name"] == "shed_kv_oom"]
+    assert oom_events
+
 
 def test_audit_recall_matches_offline_brute_force_exactly():
     """At rate 1.0 the auditor's cumulative recall EQUALS the offline

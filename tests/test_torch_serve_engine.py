@@ -346,5 +346,11 @@ def test_serve_example_runs_on_cpu(capsys):
     assert 0 < out["score"]["avg_sample_size"] < 2000
     assert out["async"]["bit_identical"]
     assert out["async"]["n_completed"] == 192
+    assert out["decode"]["loss"] < math.log(2048)     # below uniform
+    assert 0 <= out["decode"]["agreement"] <= 1
+    assert out["streaming"]["bit_identical"]
+    assert out["streaming"]["n_decode_done"] == 12
+    assert out["streaming"]["n_decode_tokens"] == 12 * 24
     printed = capsys.readouterr().out
     assert "bit-identical to synchronous flush: True" in printed
+    assert "interleaved == blocking generate: True" in printed

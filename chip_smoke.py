@@ -48,7 +48,30 @@ port's paths at Delicious-200K's full width (random weights from a seed):
   head and the LSS head (``lss_topk``, replayed in the fused step's CUDA
   graph); every run's tokens bit for bit the blocking ones, a replay the
   eager step's, the LSS step ``lss_forward``'s, the full head within
-  1e-5 of an fp32 GEMM; ms a step beside the byte bounds.
+  1e-5 of an fp32 GEMM; ms a step beside the byte bounds;
+* ``refresh`` (after ``serve_engine``, on ``train_wol``'s model and
+  index): ``refresh_swap``, the ``AsyncRuntime`` at 5,000 req/s while an
+  ``IndexRefresher`` runs three refresh cycles (one IUL epoch on the full
+  WOL -- ``simhash_codes`` --, build, warm -- ``lss_topk`` captured --,
+  flip): refit, warm and flip times, latency inside swap and refit
+  windows against the rest, no failed future, memory;
+  ``refresh_capture``, swaps alone under the same load, in turns with
+  the port's capture and ``torch.cuda.graph``'s entry; the final index
+  served bit for bit as ``lss_forward`` and a cold engine serve it;
+  ``refresh_rollback`` (probation reads recall 0: rolled back, the old
+  index served bit for bit) and ``refresh_fail`` (an exception and a NaN
+  θ in the refit: both fail, serving unchanged, the failure counter the
+  injected count);
+* ``refresh_decode`` (after ``decode``): a swap with 8 sessions in
+  flight at Qwen2-0.5B width: the pinned sessions' tokens bit for bit
+  the no-swap ones, the next generation a cold decoder's on the new
+  index, its fused step built once (its capture's ms), the old epoch's
+  steps freed; then the serve launcher's K = 6 index on the same head
+  and ``lss_topk`` at that shape;
+* ``launch``: ``repro_torch.launch.serve`` (streaming decode and async
+  scoring, each with the index refreshed every second) and
+  ``repro_torch.launch.train`` (twice on one directory, the second run
+  resuming) as subprocesses at full width.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after (``train_wol``: after each of its stages; the
@@ -57,7 +80,8 @@ that was not launched fails the run.  Checks and timings made inside a
 path's run do not count.  ``serve_engine``'s and ``decode``'s steps are
 CUDA graphs, whose replays call no wrapper: their wrappers count each
 step's warm-up and capture, and ``torch.profiler`` counts the kernels the
-replays ran.
+replays ran.  The launchers run in their own processes and print their
+wrappers' counts, which the kernels line reports.
 
 Every phase prints one JSON line; a failed check or an exception exits
 non-zero.  The line before the last is the card's name and power limit
@@ -70,20 +94,27 @@ Run from the repository root, on a machine with one CUDA device::
 
 from __future__ import annotations
 
+import ast
 import contextlib
+import gc
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 try:
-    from repro_torch import resolve_device
+    from repro_torch import obs, resolve_device
     from repro_torch.benchmarks import paper_tables
     from repro_torch.configs import qwen2_0_5b
     from repro_torch.configs.paper_datasets import DELICIOUS
@@ -114,15 +145,20 @@ try:
     from repro_torch.kernels.simhash_codes.ops import (simhash_codes_cuda,
                                                        simhash_codes_plan)
     from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
+    from repro_torch.launch.serve import LSS_CONFIG as LAUNCH_LSS
     from repro_torch.obs import assert_quiescent, trace_export
     from repro_torch.obs.audit import RecallAuditor
     from repro_torch.obs.export import prometheus_text
     from repro_torch.serve import AsyncRuntime, Engine, LMDecoder
+    from repro_torch.serve import step as step_mod
+    from repro_torch.serve.refresh import IndexRefresher, RefreshConfig
+    from repro_torch.serve.step import release_graphs
     from repro_torch.serve.runtime import (submit_decode_open_loop,
                                            submit_open_loop)
     from repro_torch.models import transformer as T
     from repro_torch.models import xc
     from repro_torch.models.xc import XCModel
+    from repro_torch.testing import faults
     from repro_torch.testing.parity import (assert_close, assert_ints_equal,
                                             assert_topk_ids_equal,
                                             margin_rows)
@@ -175,6 +211,11 @@ DECODE_NEW = 128           # decode: new tokens a session
 DECODE_CALIB = (8, 513)    # decode: fit_lss rows x tokens (4,096 positions)
 DECODE_IUL_EPOCHS = 4
 DECODE_QPS = 20.0          # decode: the open loop's sessions a second
+REFRESH_CYCLES = 3         # refresh_swap: refresh_once cycles under load
+CAPTURE_SWAPS = 6          # refresh_capture: swaps, captures in turns
+REFRESH_MARGIN_S = 0.05    # a request this close after a swap counts in it
+LAUNCH_QPS = 4.0           # launch: decode sessions a second (the pool
+                           # drains between them, so swaps reach decode)
 # decode: the full head's top logit against an fp32 GEMM of the same
 # hidden states (both fp32 GEMMs; scaled like LOGIT_ATOL)
 DECODE_FULL_TOL = 1e-5
@@ -1749,8 +1790,8 @@ def phase_decode(dev, smi, counters):
     ``lss_forward`` and an fp32 GEMM; ``lss_topk`` at the decode shapes against its plain version; ms a
     step beside the byte bounds."""
     t_phase = time.perf_counter()
-    cfg = qwen2_0_5b.CONFIG
-    lss_cfg = qwen2_0_5b.LSS._replace(iul_epochs=DECODE_IUL_EPOCHS)
+    cfg = qwen2_0_5b.CONFIG.model_cfg
+    lss_cfg = qwen2_0_5b.CONFIG.lss._replace(iul_epochs=DECODE_IUL_EPOCHS)
     params = T.init_params(torch.Generator(dev).manual_seed(SEED), cfg,
                            device=dev)
     calib = lm_dataset(SEED, DECODE_CALIB[0] * DECODE_CALIB[1], cfg.vocab,
@@ -1893,7 +1934,633 @@ def phase_decode(dev, smi, counters):
                   "beside the byte bounds at 3.35 TB/s",
           "steps": checks, "bounds": bounds, **kernels, "memory": mem, "seconds": time.perf_counter() - t_phase,
           "device": smi})
-    return launches, device_launches
+    return launches, device_launches, {
+        "dense": dense, "params": params, "prompts": prompts,
+        "blocking": blocking, "hidden": hidden[0]}
+
+
+# ------------------------------------------------------- online refresh --
+
+@contextlib.contextmanager
+def graph_entry_capture():
+    """Every ``CUDAGraph.capture_begin`` inside first does what
+    ``torch.cuda.graph``'s entry does: synchronise the device, empty the
+    device cache and the pinned host cache.  The port's capture
+    (``serve.step``) does none of it; one refresh cycle runs with it to
+    show what it would cost the requests served during that swap."""
+    real = torch.cuda.CUDAGraph.capture_begin
+    host_empty = getattr(torch._C, "_host_emptyCache", lambda: None)
+
+    def begin(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        host_empty()
+        return real(self, *args, **kwargs)
+
+    torch.cuda.CUDAGraph.capture_begin = begin
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = real
+
+
+def timed_cycles(eng, refresher):
+    """Wrap the refresher's refit and the engine's swap, warm and flip so
+    each ``refresh_once`` cycle records its host times (perf_counter
+    stamps and seconds) into the list returned."""
+    cycles = []
+    refit, swap = refresher._refit, eng.swap_index
+    warm, flip = eng.warm_epoch, eng._swap_prepared
+
+    def timed_refit():
+        t0 = time.perf_counter()
+        cycles.append({"t_refit": t0})
+        out = refit()
+        cycles[-1]["refit_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_swap(index, *, warm=True):
+        c = cycles[-1]
+        c["t_swap"] = time.perf_counter()
+        epoch = swap(index, warm=warm)
+        c["t_swap_end"] = time.perf_counter()
+        return epoch
+
+    def timed_warm(epoch, shapes=None):
+        t0 = time.perf_counter()
+        warm(epoch, shapes)
+        cycles[-1]["warm_s"] = time.perf_counter() - t0
+
+    def timed_flip(epoch):
+        t0 = time.perf_counter()
+        out = flip(epoch)
+        cycles[-1]["flip_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    refresher._refit = timed_refit
+    eng.swap_index = timed_swap
+    eng.warm_epoch = timed_warm
+    eng._swap_prepared = timed_flip
+    return cycles
+
+
+def paced_until(rt, rows, qps, stop, seed):
+    """Submit ``rows`` in turn at Poisson arrivals of rate ``qps`` until
+    ``stop`` is set; returns the futures."""
+    rng = np.random.default_rng(seed)
+    futs, t, i = [], time.perf_counter(), 0
+    while not stop.is_set():
+        t += rng.exponential(1.0 / qps)
+        dt = t - time.perf_counter()
+        if dt > 0:
+            time.sleep(dt)
+        futs.append(rt.submit(rows[i % len(rows)]))
+        i += 1
+    return futs
+
+
+def latency_split(futs, windows):
+    """p50/p99 ms of the requests whose flight overlaps each kind of
+    window in ``windows`` ({kind: [(t0, t1)]}; a request counts for the
+    first kind it overlaps) and of the rest."""
+    groups = {kind: [] for kind in windows}
+    groups["rest"] = []
+    for f in futs:
+        lat = (f.t_done - f.t_submit) * 1e3
+        for kind, spans in windows.items():
+            if any(f.t_submit < t1 + REFRESH_MARGIN_S and f.t_done > t0
+                   for t0, t1 in spans):
+                groups[kind].append(lat)
+                break
+        else:
+            groups["rest"].append(lat)
+    return {kind: {"n": len(v),
+                   "p50_ms": float(np.percentile(v, 50)) if v else None,
+                   "p99_ms": float(np.percentile(v, 99)) if v else None}
+            for kind, v in groups.items()}
+
+
+def flush_rows(eng, rows, seed):
+    """``rows`` through ``submit``/``flush`` in ragged groups of 1-47;
+    the results stacked in submit order."""
+    rng = np.random.default_rng(seed)
+    res, i = [], 0
+    while i < rows.shape[0]:
+        n = min(int(rng.integers(1, 48)), rows.shape[0] - i)
+        for j in range(i, i + n):
+            eng.submit(rows[j])
+        res += eng.flush()
+        i += n
+    return stack_results(res)
+
+
+def mem_mb():
+    torch.cuda.synchronize()
+    return {"allocated_mb": torch.cuda.memory_allocated() / 2 ** 20,
+            "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20}
+
+
+def refresh_counter(name):
+    return obs.registry().counter(name).value
+
+
+def phase_refresh_capture(eng, rows, targets, smi):
+    """The open loop at ``SERVE_QPS`` while ``CAPTURE_SWAPS`` swaps run
+    0.5 s apart, each to the next of ``targets`` in turn (a new epoch a
+    swap, its LSS steps captured anew), the odd ones with
+    ``torch.cuda.graph``'s entry at each capture: p50/p99 of the requests
+    in flight during each kind of swap against the rest."""
+    spans = {"port": [], "graph_entry": []}
+    stop = threading.Event()
+
+    def swapper():
+        try:
+            for i in range(CAPTURE_SWAPS):
+                time.sleep(0.5)
+                kind = "graph_entry" if i % 2 else "port"
+                t0 = time.perf_counter()
+                with (graph_entry_capture() if i % 2
+                      else contextlib.nullcontext()):
+                    eng.swap_index(targets[i % len(targets)])
+                spans[kind].append((t0, time.perf_counter()))
+            time.sleep(0.5)
+        finally:
+            stop.set()
+
+    rt = AsyncRuntime(eng, head="lss", max_queue=1 << 20, policy="block")
+    th = threading.Thread(target=swapper, name="capture-swaps")
+    th.start()
+    futs = paced_until(rt, rows, SERVE_QPS, stop, SEED + 1)
+    th.join(timeout=600.0)
+    rt.drain(timeout=600.0)
+    rt.close(timeout=60.0)
+    n_failed = sum(f.exception(timeout=1.0) is not None for f in futs)
+    require(not th.is_alive() and n_failed == 0,
+            f"refresh_capture: {n_failed} futures failed")
+    out = {"phase": "refresh_capture", "qps": SERVE_QPS,
+           "requests": len(futs), "failed_futures": n_failed,
+           "swap_s": {k: [t1 - t0 for t0, t1 in v]
+                      for k, v in spans.items()},
+           "latency": latency_split(futs, spans), "device": smi}
+    emit(out)
+    return out
+
+
+def phase_refresh(dev, smi, res, counters):
+    """Online index refresh on ``train_wol``'s model and index: an
+    ``Engine(None, w, b, ...)`` over the model's query embeddings (so
+    ``warm_epoch`` captures every LSS bucket's step), its calibration
+    snapshot the rows ``train_wol``'s ``fit_lss`` used.
+
+    ``refresh_swap`` (the counted run): the AsyncRuntime in open loop at
+    ``SERVE_QPS`` (policy block) while a thread runs
+    ``REFRESH_CYCLES`` ``refresh_once`` cycles (one IUL epoch on the full
+    WOL, build, warm, flip); per cycle the refit, warm and flip times;
+    p50/p99 of the requests whose flight overlaps a swap (or a refit)
+    against the rest; no failed future; the memory before, at peak and
+    after, the dropped epochs' steps gone.  ``refresh_capture``: the same
+    open loop while ``CAPTURE_SWAPS`` swaps to indexes already built run
+    0.5 s apart, in turns with the port's capture and with
+    ``torch.cuda.graph``'s entry at each capture
+    (``graph_entry_capture``): the captures' own cost to the requests in
+    flight, no refit beside them.  Then the engine's LSS results on
+    ``SERVE_REQUESTS`` rows are bit for bit ``lss_forward``'s and a cold
+    engine's on the final index.
+    ``refresh_rollback``: the auditor at rate 1.0 under traffic, probation
+    armed to read recall 0: rolled back, the rollback counter 1, the
+    pre-swap index served bit for bit, one epoch left.  ``refresh_fail``:
+    an injected refit exception, then a NaN θ: both fail, serving is
+    unchanged, and ``lss_refresh_failures_total`` is the injected count.
+    Returns the counted run's launches and the injected failures."""
+    t_phase = time.perf_counter()
+    model, index, lss_cfg, data = (res["model"], res["index"],
+                                   res["lss_config"], res["data"])
+    n_test = res["n_test"]
+    w, b = model.w_out.float(), model.b_out.float()
+    q_all = torch.cat([model.embed(torch.from_numpy(
+        data.x[i:i + BATCH]).to(dev)) for i in range(0, len(data.x), BATCH)])
+    lab = torch.from_numpy(data.labels).to(dev)
+    calib = (q_all[n_test:], lab[n_test:])       # fit_lss's rows
+    rows = q_all.cpu().numpy()
+    eng = Engine(None, w, b, lss_cfg, top_k=TOP_K, head="lss")
+    eng._set_index(index)
+    buckets = eng.batcher.buckets
+    for bk in buckets:
+        eng._step("lss", bk)(rows[:bk])
+    first = [weakref.ref(s) for s in eng._epoch_state().steps.values()]
+    require(all(ref().captured for ref in first),
+            "refresh: the serving steps are not captured")
+    failures0 = refresh_counter("lss_refresh_failures_total")
+
+    # refresh_swap: the counted run
+    refresher = IndexRefresher(eng, auditor=None, calib=calib, seed=SEED,
+                               cfg=RefreshConfig(warm=True))
+    cycles = timed_cycles(eng, refresher)
+    outcomes, stop = [], threading.Event()
+
+    def refresh_loop():
+        try:
+            time.sleep(0.5)                      # steady traffic first
+            for _ in range(REFRESH_CYCLES):
+                outcomes.append(refresher.refresh_once())
+            time.sleep(0.5)
+        finally:
+            stop.set()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = mem_mb()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    rt = AsyncRuntime(eng, head="lss", max_queue=1 << 20, policy="block")
+    th = threading.Thread(target=refresh_loop, name="refresh-cycles")
+    t0 = time.perf_counter()
+    th.start()
+    futs = paced_until(rt, rows, SERVE_QPS, stop, SEED)
+    th.join(timeout=600.0)
+    rt.drain(timeout=600.0)
+    swap_s = time.perf_counter() - t0
+    stats = rt.stats()
+    rt.close(timeout=60.0)
+    launches = read(counters)
+    peak = {"allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "reserved_mb": torch.cuda.max_memory_reserved() / 2 ** 20}
+    require(not th.is_alive(), "refresh_swap: the refresh thread hangs")
+    n_failed = sum(f.exception(timeout=1.0) is not None for f in futs)
+    require(outcomes == ["swapped"] * REFRESH_CYCLES
+            and refresher.n_failed == 0,
+            f"refresh_swap: outcomes {outcomes}, last error "
+            f"{refresher.last_error}")
+    require(n_failed == 0, f"refresh_swap: {n_failed} futures failed")
+    require(launches["simhash_codes_cuda"] > 0
+            and launches["lss_topk_cuda"]
+            == 2 * len(buckets) * REFRESH_CYCLES
+            and launches["bucket_logits_cuda"] == 0,
+            f"refresh_swap: wrapper launches {launches}, not the refits' "
+            f"simhash_codes and a warm-up and a capture of lss_topk for "
+            f"each of {len(buckets)} buckets a cycle")
+    windows = {"swap": [(c["t_swap"], c["t_swap_end"]) for c in cycles],
+               "refit": [(c["t_refit"], c["t_refit"] + c["refit_s"])
+                         for c in cycles]}
+    lat = latency_split(futs, windows)
+    del futs
+    gc.collect()
+    released = release_graphs()
+    torch.cuda.empty_cache()
+    mem1 = mem_mb()
+    require(len(eng._epochs) == 1 and not step_mod._DEAD
+            and all(ref() is None for ref in first),
+            "refresh_swap: a dropped epoch's steps are still alive")
+    emit({"phase": "refresh_swap", "qps": SERVE_QPS,
+          "requests": stats.n_completed, "failed_futures": n_failed,
+          "seconds": swap_s, "outcomes": outcomes,
+          "cycles": [{"refit_s": c["refit_s"], "warm_s": c["warm_s"],
+                      "flip_ms": c["flip_ms"],
+                      "swap_s": c["t_swap_end"] - c["t_swap"]}
+                     for c in cycles],
+          "latency": lat, "runtime": stats._asdict(),
+          "calib_recall": refresher.last_info.get("recall"),
+          "launches": launches, "memory_before": mem0, "memory_peak": peak,
+          "memory_after": mem1, "graphs_released_after": released,
+          "epoch": eng.index_epoch, "device": smi})
+
+    with uncounted(counters):
+        # refresh_capture: swaps alone, the port's capture and
+        # torch.cuda.graph's entry in turns; the last one serves `final`
+        final = eng.index
+        capture = phase_refresh_capture(eng, rows, [index, final], smi)
+
+        # the final index: bit for bit lss_forward's and a cold engine's
+        require(eng.index is final, "refresh_capture: not the final index")
+        x = rows[:SERVE_REQUESTS]
+        got = flush_rows(eng, x, SEED)
+        ref = [lss_forward(q_all[i:i + BATCH], final, None, TOP_K)
+               for i in range(0, SERVE_REQUESTS, BATCH)]
+        ref_lg = torch.cat([r.top_logits for r in ref]).cpu().numpy()
+        ref_ids = torch.cat([r.top_ids for r in ref]).cpu().numpy()
+        require(same_bits(got[0], ref_lg) and same_bits(got[1], ref_ids),
+                "refresh_swap: the swapped engine differs from lss_forward")
+        cold = Engine(None, w, b, lss_cfg, top_k=TOP_K, head="lss")
+        cold._set_index(final)
+        want = flush_rows(cold, x, SEED)
+        require(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+                "refresh_swap: the swapped engine differs from a cold one")
+        del cold
+
+        # refresh_rollback: the auditor at 1.0, probation reads recall 0
+        for bk in buckets:
+            eng._step("full", bk)(rows[:bk])     # the auditor's steps
+        eng.auditor = RecallAuditor(eng, 1.0, queue_cap=4096)
+        x8 = rows[:8]
+        pre = eng.rank(x8, record=False)
+        idx_before = eng.index
+        for i in range(32):                      # the pre-swap baseline
+            eng.rank(rows[8 * i:8 * i + 8])
+        eng.auditor.drain(timeout=600.0)
+        rollback_ref = IndexRefresher(
+            eng, calib=calib, seed=SEED + 1,
+            cfg=RefreshConfig(probation_s=120.0, min_audit_rows=64,
+                              probation_poll_s=0.02, rollback_delta=0.0))
+        stop_traffic = threading.Event()
+
+        def traffic():
+            i = 0
+            while not stop_traffic.is_set():
+                eng.rank(rows[8 * (i % 256):8 * (i % 256) + 8])
+                i += 1
+                time.sleep(0.002)
+
+        tt = threading.Thread(target=traffic, name="rollback-traffic")
+        tt.start()
+        t0 = time.perf_counter()
+        try:
+            with faults.injected(faults.REFRESH_PROBATION,
+                                 lambda ctx: ctx.__setitem__("recall", 0.0)):
+                outcome = rollback_ref.refresh_once()
+        finally:
+            stop_traffic.set()
+            tt.join(timeout=60.0)
+        rollback_s = time.perf_counter() - t0
+        post = eng.rank(x8, record=False)
+        require(outcome == "rolled_back" and rollback_ref.n_rollbacks == 1
+                and refresh_counter("lss_refresh_rollback_total") == 1,
+                f"refresh_rollback: outcome {outcome}, last error "
+                f"{rollback_ref.last_error}")
+        require(eng.index is idx_before and len(eng._epochs) == 1
+                and same_tensor_bits(post.logits, pre.logits)
+                and same_tensor_bits(post.ids, pre.ids),
+                "refresh_rollback: the pre-swap index is not served as it "
+                "was")
+        eng.auditor.drain(timeout=600.0)
+        audited = eng.auditor.snapshot()
+        eng.auditor.close()
+        eng.auditor = None
+        emit({"phase": "refresh_rollback", "outcome": outcome,
+              "seconds": rollback_s, "epoch": eng.index_epoch,
+              "epochs": len(eng._epochs), "audited_rows": audited[1],
+              "rollback_total": refresh_counter(
+                  "lss_refresh_rollback_total"),
+              "served": "the pre-swap index, bit for bit", "device": smi})
+
+        # refresh_fail: an exception, then a NaN theta, in the refit
+        pre = eng.rank(rows[:BATCH], record=False)
+        epoch = eng.index_epoch
+
+        def poison(ctx):
+            refresher._state = refresher._state._replace(
+                theta=torch.full_like(refresher._state.theta, float("nan")))
+
+        got = []
+        for action in (RuntimeError("injected refit failure"), poison):
+            with faults.injected(faults.REFRESH_REFIT, action):
+                got.append((refresher.refresh_once(), refresher.last_error))
+        post = eng.rank(rows[:BATCH], record=False)
+        injected = 2
+        failures = refresh_counter("lss_refresh_failures_total") - failures0
+        require([o for o, _ in got] == ["failed", "failed"]
+                and failures == injected and eng.index_epoch == epoch
+                and same_tensor_bits(post.logits, pre.logits)
+                and same_tensor_bits(post.ids, pre.ids),
+                f"refresh_fail: outcomes {got}, {failures} failures counted "
+                f"for {injected} injected")
+    emit({"phase": "refresh_fail", "outcomes": [o for o, _ in got],
+          "errors": [e for _, e in got], "failures_total": failures,
+          "injected": injected, "served": "unchanged, bit for bit",
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    return launches, injected
+
+
+def phase_refresh_decode(dev, smi, counters, state, injected):
+    """A swap mid-decode at Qwen2-0.5B's full width, on the ``decode``
+    phase's params, dense decoder and index, to a second index fitted
+    from another generator: ``DECODE_STREAMS`` sessions in flight keep
+    their pinned epoch (their tokens the blocking no-swap ones, bit for
+    bit); sessions admitted after the drain run the new epoch (bit for
+    bit a cold decoder's on it), whose fused step is built exactly once
+    (its capture's ms is the ITL gap it cost) while the old epoch's steps
+    are freed.  Then the serve launcher's LSS fit (K = 6) on the same
+    head: its P and C, and ``lss_topk`` at that shape against its plain
+    version and its bound.  The refresher failures over the refresh
+    phases must be the injected ones.  Returns the counted run's
+    launches."""
+    t_phase = time.perf_counter()
+    dec, prompts, blocking = state["dense"], state["prompts"], \
+        state["blocking"]
+    eng = dec.engine
+    q_calib, lab_calib = eng.calib
+    lss_cfg = eng.lss_cfg
+    with uncounted(counters):
+        t0 = time.perf_counter()
+        idx2, _ = fit_lss(torch.Generator(dev).manual_seed(SEED + 2),
+                          q_calib, lab_calib, eng.w, eng.b, lss_cfg)
+        fit2_s = time.perf_counter() - t0
+    require(not torch.equal(idx2.theta, dec.index.theta),
+            "refresh_decode: the second index is the first")
+    sched = dec.scheduler("lss")
+    key = ("lss", sched._tag)
+    builds0 = eng.compile_counts[key]
+    pinned = prompts[:DECODE_STREAMS]
+
+    reset(counters)
+    streams = [sched.submit(p, max_new_tokens=DECODE_NEW) for p in pinned]
+    for _ in range(4):
+        sched.tick()
+    require(sched.pool.n_active == DECODE_STREAMS,
+            "refresh_decode: the sessions are not in flight")
+    e_old = sched._epoch
+    old_steps = [weakref.ref(s) for s in eng._epochs[e_old].steps.values()]
+    t0 = time.perf_counter()
+    e_new = eng.swap_index(idx2)
+    swap_s = time.perf_counter() - t0
+    require(eng.index_epoch == e_new and sched._epoch == e_old,
+            "refresh_decode: the swap reached the pinned generation")
+    sched.run(timeout=600.0)
+    toks = [s.result(timeout=60.0) for s in streams]
+    dropped = e_old not in eng._epochs
+    gc.collect()
+    release_graphs()
+    freed = all(ref() is None for ref in old_steps)
+    after = [sched.submit(p, max_new_tokens=DECODE_NEW)
+             for p in prompts[DECODE_STREAMS:2 * DECODE_STREAMS]]
+    sched.run(timeout=600.0)
+    toks2 = [s.result(timeout=60.0) for s in after]
+    launches = read(counters)
+    new_step = eng._epochs[e_new].steps[key]
+    capture_ms = new_step.build_s * 1e3
+    itl = np.concatenate([s.inter_token_s() for s in after]) * 1e3
+    require(all(np.array_equal(a, b) for a, b in zip(toks, blocking["lss"])),
+            "refresh_decode: a pinned session's tokens moved with the swap")
+    require(dropped and freed and not step_mod._DEAD,
+            "refresh_decode: the old epoch's steps are still alive")
+    require(eng.compile_counts[key] == builds0 + 1,
+            f"refresh_decode: the new epoch's fused step built "
+            f"{eng.compile_counts[key] - builds0} times")
+    require(launches["lss_topk_cuda"] > 0
+            and launches["bucket_logits_cuda"] == 0,
+            f"refresh_decode: wrapper launches {launches}")
+    with uncounted(counters):
+        cold = LMDecoder(state["params"], dec.cfg, lss_cfg,
+                         max_streams=DECODE_STREAMS, max_len=DECODE_MAX_LEN,
+                         kv_layout="dense")
+        cold.engine._set_index(idx2)
+        want = run_sessions(cold.scheduler("lss"),
+                            prompts[DECODE_STREAMS:2 * DECODE_STREAMS],
+                            DECODE_NEW)
+        require(all(np.array_equal(a, b) for a, b in zip(toks2, want)),
+                "refresh_decode: the new generation differs from a cold "
+                "decoder on the new index")
+        del cold
+        release_graphs()
+    emit({"phase": "refresh_decode", "model": dec.cfg.name,
+          "sessions_in_flight": DECODE_STREAMS, "new_tokens": DECODE_NEW,
+          "second_index_fit_s": fit2_s, "swap_s": swap_s,
+          "pinned": "bit for bit the no-swap blocking tokens",
+          "after_drain": "bit for bit a cold decoder on the new index",
+          "fused_step_builds": eng.compile_counts[key] - builds0,
+          "fused_step_capture_ms": capture_ms,
+          "itl_after_drain_ms": {"median": float(np.median(itl)),
+                                 "max": float(itl.max())},
+          "old_epoch_freed": freed, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+
+    # the serve launcher's LSS fit (K = 6) on the same head, and lss_topk
+    # at its shape
+    with uncounted(counters):
+        t0 = time.perf_counter()
+        idx6, _ = fit_lss(torch.Generator(dev).manual_seed(SEED + 3),
+                          q_calib, lab_calib, eng.w, eng.b, LAUNCH_LSS)
+        fit6_s = time.perf_counter() - t0
+        t = idx6.tables
+        hidden = state["hidden"]
+        kernels = decode_kernels(idx6, hidden, q_calib, smi)
+        failures = refresh_counter("lss_refresh_failures_total")
+        require(failures == injected,
+                f"refresh: {failures} refresher failures, {injected} "
+                f"injected")
+    emit({"phase": "refresh_launcher_index", "K": t.k_bits,
+          "L": t.n_tables, "P": t.capacity, "C": t.n_tables * t.capacity,
+          "n_dropped": int(t.n_dropped.sum()), "fit_s": fit6_s,
+          "slab_mb_per_query": t.n_tables * t.capacity
+          * idx6.w_bucketed.shape[-1] * idx6.w_bucketed.element_size()
+          / 2 ** 20, **kernels, "refresher_failures": failures,
+          "injected": injected, "device": smi})
+    return launches
+
+
+# ------------------------------------------------------------ launchers --
+
+def run_launcher(module, args, timeout):
+    """``python -m module args`` from the repository root, as a user runs
+    it (the device left at its default); its stdout and seconds.  A
+    non-zero exit fails the run with the end of its output."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    cmd = [sys.executable, "-m", module, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(
+            f"launch: {' '.join(cmd[2:])} exited {proc.returncode}:\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, seconds
+
+
+def grab(pattern, text, what):
+    m = re.search(pattern, text)
+    require(m is not None, f"launch: no {what} line in\n{text[-3000:]}")
+    return m
+
+
+def launcher_counts(out):
+    """The serve launcher's refresher counts, builds and kernel
+    launches, read off its output."""
+    r = grab(r"index refresh: swaps=(\d+) rollbacks=(\d+) failures=(\d+) "
+             r"epoch=(\d+)", out, "refresher")
+    refresh = dict(zip(("swaps", "rollbacks", "failures", "epoch"),
+                       map(int, r.groups())))
+    builds = ast.literal_eval(grab(r"engine compiles \(head, \w+\): "
+                                   r"(\{.*\})", out, "builds").group(1))
+    launches = ast.literal_eval(grab(r"kernel launches: (\{.*\})", out,
+                                     "kernel launches").group(1))
+    return refresh, builds, launches
+
+
+def phase_launch(smi):
+    """The port's launchers as a user runs them, at full width, on the
+    card: ``repro_torch.launch.serve`` streaming decode with online
+    refresh every second at ``LAUNCH_QPS`` sessions a second (the pool
+    drains between sessions, so swapped-in epochs serve new
+    generations): every session served, no refresher failure, a swap,
+    the LSS fused step built under at least two epochs; the same
+    launcher's async scoring at 5,000 req/s with the auditor and
+    /metrics; ``repro_torch.launch.train`` twice on one checkpoint
+    directory, the second run resuming.  Returns each serve run's kernel
+    launches."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = ["--arch", "qwen2-0.5b", "--train-steps", "20", "--head", "lss",
+            "--steps", "32", "--refresh-interval", "1"]
+    runs, launches = {}, {}
+    out, secs = run_launcher(
+        "repro_torch.launch.serve",
+        base + ["--mode", "decode", "--streams", "8", "--sessions", "32",
+                "--qps", str(LAUNCH_QPS)], 900)
+    refresh, builds, launches["serve_decode"] = launcher_counts(out)
+    idx = grab(r"LSS index: K=(\d+) L=(\d+) P=(\d+) C=(\d+)", out,
+               "index").groups()
+    itl = grab(r"itl p50=([\d.]+) p95=([\d.]+) p99=([\d.]+)", out,
+               "ITL").groups()
+    fused = [n for (kind, tag), n in builds.items()
+             if kind == "lss" and str(tag).startswith("decode[")]
+    require("32/32 sessions served" in out, "launch decode: sessions lost")
+    require(refresh["failures"] == 0 and refresh["swaps"] >= 1,
+            f"launch decode: refresher {refresh}")
+    require(len(fused) == 1 and fused[0] >= 2,
+            f"launch decode: the LSS fused step built {fused} times: no "
+            f"generation ran on a swapped-in epoch")
+    require(launches["serve_decode"]["lss_topk_cuda"] > 0
+            and launches["serve_decode"]["simhash_codes_cuda"] > 0,
+            f"launch decode: kernel launches {launches['serve_decode']}")
+    runs["serve_decode"] = {
+        "seconds": secs, "refresh": refresh, "fused_step_builds": fused[0],
+        "index": dict(zip("KLPC", map(int, idx))),
+        "itl_ms": dict(zip(("p50", "p95", "p99"), map(float, itl))),
+        "launches": launches["serve_decode"]}
+
+    out, secs = run_launcher(
+        "repro_torch.launch.serve",
+        base + ["--runtime", "async", "--qps", "5000", "--audit-rate",
+                "0.25", "--metrics-port", "0"], 900)
+    refresh, builds, launches["serve_async"] = launcher_counts(out)
+    lat = grab(r"p50=([\d.]+) p95=([\d.]+) p99=([\d.]+) ms \(incl", out,
+               "latency").groups()
+    require("512/512 served" in out and "metrics: http://" in out,
+            "launch async: requests lost or no /metrics")
+    require(refresh["failures"] == 0 and refresh["swaps"] >= 1,
+            f"launch async: refresher {refresh}")
+    runs["serve_async"] = {
+        "seconds": secs, "refresh": refresh,
+        "latency_ms": dict(zip(("p50", "p95", "p99"), map(float, lat))),
+        "launches": launches["serve_async"]}
+
+    with tempfile.TemporaryDirectory(prefix="launch_train_") as tmp:
+        args = ["--arch", "qwen2-0.5b", "--steps", "20", "--ckpt-dir", tmp]
+        first, s1 = run_launcher("repro_torch.launch.train", args, 900)
+        again, s2 = run_launcher("repro_torch.launch.train", args, 900)
+    loss = grab(r"done: step 20 loss ([\d.]+)", first, "train").group(1)
+    require("[trainer] resumed from step 20" in again
+            and "resumed at step 20: nothing left to train" in again,
+            f"launch train: the rerun did not resume:\n{again[-2000:]}")
+    runs["train"] = {"seconds": [s1, s2], "loss": float(loss),
+                     "rerun": "resumed at step 20"}
+    emit({"phase": "launch", **runs, "launch_qps": LAUNCH_QPS,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    return launches
 
 
 def bucket_logits_entry(index, q_aug0, launches):
@@ -1996,15 +2663,25 @@ def main() -> int:
     serve_launches = phase_serve_engine(dev, smi, res["model"], res["index"],
                                         res["lss_config"], res["data"],
                                         counters)
+    refresh_launches, injected = phase_refresh(dev, smi, res, counters)
     del res
-    decode_launches, decode_device = phase_decode(dev, smi, counters)
-    line["kernels"][0]["launches_by_path"] = {
-        "main_path": line["kernels"][0]["launches"],
-        "decode": decode_launches["simhash_codes_cuda"]}
-    line["kernels"][1]["launches_by_path"] = {
-        "main_path": line["kernels"][1]["launches"],
-        "serve_engine": serve_launches,
-        "decode": decode_device}
+    decode_launches, decode_device, decode_state = phase_decode(
+        dev, smi, counters)
+    refresh_decode_launches = phase_refresh_decode(dev, smi, counters,
+                                                   decode_state, injected)
+    del decode_state
+    launch_launches = phase_launch(smi)
+    for entry in line["kernels"][:2]:
+        name = entry["name"] + "_cuda"
+        entry["launches_by_path"] = {
+            "main_path": entry["launches"],
+            "refresh": refresh_launches[name],
+            "refresh_decode": refresh_decode_launches[name],
+            "launch": {run: n[name] for run, n in launch_launches.items()}}
+    line["kernels"][0]["launches_by_path"]["decode"] = \
+        decode_launches["simhash_codes_cuda"]
+    line["kernels"][1]["launches_by_path"].update(
+        serve_engine=serve_launches, decode=decode_device)
     phase_preemption(dev)
     phase_paper_table1(dev, smi, counters)
     phase_paper_table2(dev, smi, counters)

@@ -1,2 +1,3 @@
-"""Model settings: the paper's datasets and the LM configs the port
-serves (``qwen2_0_5b``, ``qwen3_4b``, their ``reduced`` forms)."""
+"""Model settings: the paper's datasets, the LM archs the port serves
+(``base``'s ``ArchSpec`` per arch, looked up by id through
+``registry``), and their ``reduced`` forms."""

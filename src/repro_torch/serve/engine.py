@@ -28,10 +28,20 @@ straight into the head, a CUDA graph on the card — and ``LMDecoder``
 serves an LM through it (``repro_torch.serve.decode``).  A decode
 generation pins the index epoch it started under (``pin_epoch``).
 
+Online refresh (``repro_torch.serve.refresh``) goes through the epoch
+table: ``swap_index`` registers a new epoch, ``warm_epoch`` captures its
+LSS score steps off the serving path (a build holds the step's own lock,
+never ``self.lock``), and ``_swap_prepared`` flips the serving epoch in
+O(1) under the lock.  The steps of the epochs a flip or an unpin drops
+are released through ``serve.step.release_graphs``, never inside
+another thread's capture.  Everything runs on the current stream of the
+calling thread: a refit on the default stream queues in order with the
+serving replays there, so the new index's tensors need no hand-over.
+
 ``WOLServer`` remains as a thin compatibility wrapper.  Requests are
 pytrees (``{"x": ids}``) of numpy arrays or tensors, as in JAX.  Still
-to come: online refresh (``warm_epoch``, ``swap_index``,
-``swap_from_theta``) and the vocab-sharded and multi-process heads.
+to come: the vocab-sharded and multi-process heads (ROADMAP Queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -53,7 +63,8 @@ from repro_torch.obs.audit import RecallAuditor
 from repro_torch.serve.batcher import DEFAULT_BUCKETS, MicroBatcher
 from repro_torch.serve.heads import (HEAD_KINDS, HeadOutput, make_full_head,
                                      make_lss_head)
-from repro_torch.serve.step import Step
+from repro_torch.serve.step import Step, release_graphs
+from repro_torch.testing import faults
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["Engine", "ServeMetrics", "RankResult", "WOLServer", "LMDecoder",
@@ -92,11 +103,11 @@ class _Pending(NamedTuple):
 
 class _IndexEpoch:
     """One fitted-index generation and everything derived from it: its
-    LSS heads and steps.  ``_set_index`` prepares a new generation and
-    flips ``Engine.index_epoch`` to it in O(1) under the lock.  Old
-    generations stay resident while decode sessions that prefilled under
-    them are still draining (``pins``) and are dropped at unpin or at the
-    next swap once unpinned."""
+    LSS heads and steps.  ``swap_index`` prepares a new generation, warms
+    its steps off the serving path and flips ``Engine.index_epoch`` to it
+    in O(1) under the lock.  Old generations stay resident while decode
+    sessions that prefilled under them are still draining (``pins``) and
+    are dropped at unpin or at the next swap once unpinned."""
 
     __slots__ = ("epoch", "index", "heads", "steps", "pins")
 
@@ -153,7 +164,9 @@ class Engine:
     queue, finished results, the metrics window, and the step table —
     happens under ``self.lock`` (an RLock), so one Engine can be shared
     by the AsyncRuntime's worker threads and any number of user threads.
-    A step replay holds only the step's own lock.
+    A step's build and replay hold only the step's own lock (a build
+    bumps ``compile_counts`` under a lock of its own), so a capture off
+    the serving path stalls no ``submit`` or ``_record``.
     """
 
     def __init__(self, embed_fn: Callable | None, w: torch.Tensor,
@@ -188,6 +201,7 @@ class Engine:
         # in their _IndexEpoch.  One build-count table spans all epochs.
         self._steps: dict[tuple[str, Any], Step] = {}
         self.compile_counts: dict[tuple[str, Any], int] = {}
+        self._count_lock = threading.Lock()   # compile_counts only
         self.calib: tuple | None = None   # (q, labels) refs from last fit
         self._queue: list[_Pending] = []
         self._results: list[RankResult] = []
@@ -266,31 +280,81 @@ class Engine:
         return st
 
     def _set_index(self, index: LSSIndex) -> None:
-        """Install ``index`` as the serving epoch immediately."""
+        """Install ``index`` as the serving epoch immediately (the
+        offline fit path).  Online refresh goes through
+        :meth:`swap_index` instead — prepare + warm + guarded flip."""
         self._swap_prepared(self.prepare_epoch(index))
 
     def prepare_epoch(self, index: LSSIndex) -> int:
-        """Register ``index`` as a new, not-yet-serving epoch; its heads
-        and steps are built lazily."""
+        """Register ``index`` as a new, not-yet-serving epoch.  Its heads
+        and steps are built lazily or via :meth:`warm_epoch` — none of it
+        on the serving path, none of it under a lock held across device
+        work."""
         with self.lock:
             self._epoch_seq += 1
             e = self._epoch_seq
             self._epochs[e] = _IndexEpoch(e, index)
             return e
 
+    def warm_epoch(self, epoch: int, shapes=None) -> None:
+        """Build the prepared epoch's LSS score steps for the bucket
+        shapes the serving epoch already built (or explicit ``shapes``,
+        ``(kind, bucket)`` pairs), so post-swap traffic replays captured
+        graphs instead of paying a capture on its first chunk.  Runs off
+        the serving path: a build holds the step's own lock, not
+        ``self.lock``.  Decode steps are not warmed here — a scheduler
+        generation builds its fused step when it first dispatches under
+        the new epoch.  No-op on ``embed_fn`` engines (request shapes are
+        not fabricable here)."""
+        if self.embed_fn is not None:
+            return
+        if shapes is None:
+            cur = self._epochs.get(self.index_epoch)
+            shapes = [] if cur is None else \
+                [k for k in list(cur.steps) if isinstance(k[1], int)]
+        d = int(self.w.shape[1])
+        for kind, bucket in shapes:
+            step = self._step(kind, bucket, epoch=epoch)
+            step(np.zeros((bucket, d), np.float32))
+
     def _swap_prepared(self, epoch: int) -> int:
-        """Flip the serving epoch to ``epoch`` in O(1) under the lock and
-        drop every other unpinned epoch: a chunk that fetched its step
-        before the flip runs the old generation to completion."""
+        """Flip the serving epoch to ``epoch`` — the only mutation on the
+        swap path, O(1) under the lock, so it lands between runtime
+        chunks: a chunk that fetched its step before the flip runs the
+        old generation to completion, every fetch after runs the new.
+        Every other unpinned epoch is dropped, and its steps' graphs
+        released outside the lock."""
         with self.lock:
-            st = self._epoch_state(epoch)
+            st = self._epoch_state(epoch)       # raises if dropped
+            faults.fire(faults.ENGINE_SWAP, epoch=epoch)
             old = self.index_epoch
             self.index_epoch = st.epoch
-            for k in [k for k, s in self._epochs.items()
-                      if k != st.epoch and s.pins <= 0]:
-                del self._epochs[k]
+            dropped = [self._epochs.pop(k) for k, s in
+                       list(self._epochs.items())
+                       if k != st.epoch and s.pins <= 0]
+        del dropped
+        release_graphs()
         obs.event("index_swap", epoch=epoch, prev=old)
         return epoch
+
+    def swap_index(self, index: LSSIndex, *, warm: bool = True) -> int:
+        """Online refresh entry: register ``index`` as a new epoch, warm
+        its score steps off the serving path, then flip.  Returns the new
+        epoch id."""
+        e = self.prepare_epoch(index)
+        if warm:
+            self.warm_epoch(e)
+        return self._swap_prepared(e)
+
+    def swap_from_theta(self, theta: torch.Tensor) -> int:
+        """Rebuild the index from hyperplanes against this engine's own
+        ``_w_aug`` and flip (the multihost follower's swap in the JAX
+        package).  ``build_index`` is value-deterministic, so the same θ
+        gives a bit-identical index without shipping buckets."""
+        theta = torch.as_tensor(theta, dtype=torch.float32,
+                                device=self.device)
+        index = build_index(self._w_aug, theta, self.lss_cfg)
+        return self._swap_prepared(self.prepare_epoch(index))
 
     def pin_epoch(self, epoch: int | None = None) -> int:
         """Pin an epoch (default: the serving one) so a swap cannot drop
@@ -311,6 +375,10 @@ class Engine:
             st.pins -= 1
             if st.pins <= 0 and epoch != self.index_epoch:
                 del self._epochs[epoch]
+        del st
+        # on the serving path (the scheduler's tick): never wait on a
+        # capture; a running one releases the graphs when it ends
+        release_graphs(block=False)
 
     def drop_step(self, kind: str, tag) -> None:
         """Remove one cached step (every epoch's copy included) — the
@@ -318,9 +386,11 @@ class Engine:
         (and the pool tensors its graph holds) cannot collide with its
         successor's tag."""
         with self.lock:
-            self._steps.pop((kind, tag), None)
+            dropped = [self._steps.pop((kind, tag), None)]
             for st in self._epochs.values():
-                st.steps.pop((kind, tag), None)
+                dropped.append(st.steps.pop((kind, tag), None))
+        del dropped
+        release_graphs()
 
     # ------------------------------------------------------ head lookup --
     def _head(self, kind: str, st: _IndexEpoch | None = None) -> Callable:
@@ -363,16 +433,22 @@ class Engine:
                 def fn(x):
                     return head(embed(x) if embed is not None else x)
 
-                table[key] = Step(fn, self.device, self._counter(key),
-                                  self.lock)
+                table[key] = Step(fn, self.device, self._counter(key))
             return table[key]
 
     def _counter(self, key) -> Callable[[], None]:
-        """The ``on_build`` hook of the step under ``key``."""
+        """The ``on_build`` hook of the step under ``key``: it runs under
+        the step's lock, so it takes ``_count_lock`` (held around nothing
+        else), never ``self.lock`` (held by ``flush`` around step calls)."""
         def on_build():
-            with self.lock:
+            with self._count_lock:
                 self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
         return on_build
+
+    def n_builds(self) -> int:
+        """Builds so far, over every (head, shape) and epoch."""
+        with self._count_lock:
+            return sum(self.compile_counts.values())
 
     def decode_logits(self, kind: str, tag: str, body: Callable,
                       epoch: int | None = None) -> Step:
@@ -419,7 +495,7 @@ class Engine:
 
                 # (params, tok, k, v) bound; the warm-up's tokens undone
                 table[key] = Step(fn, self.device, self._counter(key),
-                                  self.lock, n_bound=4, restore=(1,))
+                                  n_bound=4, restore=(1,))
             return table[key]
 
     # ------------------------------------------------------- score path --
@@ -588,7 +664,7 @@ class Engine:
                 latency_p99_ms=float(p99 * 1e3),
                 label_recall=(self._recall_hit / self._recall_tot
                               if self._recall_tot else math.nan),
-                n_compiles=sum(self.compile_counts.values()),
+                n_compiles=self.n_builds(),
             )
 
 

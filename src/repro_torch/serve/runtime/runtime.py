@@ -525,7 +525,7 @@ class AsyncRuntime:
                         stack_rows([w.x for w in live]), bucket)
                     step = self.engine._step(self.head, bucket)
                     n_disp = len(dispatch_log())
-                    n_comp = sum(self.engine.compile_counts.values())
+                    n_comp = self.engine.n_builds()
                     t0 = time.perf_counter()
                     # replay, then copies to pinned host buffers and an
                     # event: all asynchronous on the card
@@ -534,8 +534,7 @@ class AsyncRuntime:
                     # dispatched, and whether it paid a (head, bucket)
                     # build (both non-empty only at a build on the card)
                     new = dispatch_log()[n_disp:]
-                    d_comp = (sum(self.engine.compile_counts.values())
-                              - n_comp)
+                    d_comp = self.engine.n_builds() - n_comp
                     if new or d_comp:
                         span.set(dispatches=[f"{op}:{impl}"
                                              for op, impl in new],

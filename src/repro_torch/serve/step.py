@@ -34,12 +34,29 @@ counter therefore counts the calls that launched its kernel: the
 warm-up's and the one recorded into the graph.  A replay runs the
 graph's kernels without calling a wrapper, so replays show on the
 device (``torch.profiler``'s kernel events), not in the counters.
+
+Steps are built while the engine serves (an index refresh warms the new
+epoch's steps, a decode generation captures its fused step), so a build
+stalls nothing but callers of the same step:
+
+* it holds only the step's own lock, never the engine's;
+* the capture calls ``CUDAGraph.capture_begin``/``capture_end`` on a
+  capture stream of its own, in ``thread_local`` mode, and not
+  ``torch.cuda.graph``, whose entry synchronises the device and empties
+  the device and pinned host caches (the serving threads' allocations
+  would then wait on that, and their next pinned copies allocate anew);
+* a step's graph is never destroyed outside ``_CAPTURE_LOCK``: a graph
+  destroyed while another thread captures invalidates that capture, so a
+  dropped step hands its graph to :func:`release_graphs`, which runs
+  under the lock (the engine calls it after each drop, and every capture
+  calls it when it ends).
 """
 
 from __future__ import annotations
 
 import gc
 import threading
+import time
 from typing import Callable
 
 import numpy as np
@@ -47,27 +64,50 @@ import torch
 
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["Step"]
+__all__ = ["Step", "release_graphs"]
 
-# one warm-up stream a device: cuBLAS keeps a workspace for each stream
-# it has run on, so a new stream a build would leave one behind per build
+# one warm-up stream and one capture stream a device: cuBLAS keeps a
+# workspace for each stream it has run on, so a new stream a build would
+# leave one behind per build
 _WARMUP_STREAMS: dict[int, torch.cuda.Stream] = {}
-_WARMUP_LOCK = threading.Lock()
-# captures run one at a time with automatic garbage collection off: an
-# engine and its steps form a reference cycle, so a dead engine's graphs
-# go when the collector runs, and a collection inside a capture would
-# destroy a graph there -- which a capturing thread may not do, and which
-# invalidates the capture
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+_STREAMS_LOCK = threading.Lock()
+# captures run one at a time with automatic garbage collection off, and
+# graphs are destroyed only under this lock: destroying a graph while a
+# capture runs (a collection inside it, or another thread dropping a
+# step) invalidates the capture
 _CAPTURE_LOCK = threading.Lock()
+# the graphs of dropped steps, until release_graphs destroys them
+_DEAD: list = []
 
 
-def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
+def _stream(table: dict, device: torch.device) -> torch.cuda.Stream:
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    with _WARMUP_LOCK:
-        if index not in _WARMUP_STREAMS:
-            _WARMUP_STREAMS[index] = torch.cuda.Stream(index)
-        return _WARMUP_STREAMS[index]
+    with _STREAMS_LOCK:
+        if index not in table:
+            table[index] = torch.cuda.Stream(index)
+        return table[index]
+
+
+def _reap() -> int:
+    n = 0
+    while _DEAD:
+        _DEAD.pop()                 # the last reference: destroyed here
+        n += 1
+    return n
+
+
+def release_graphs(block: bool = True) -> int:
+    """Destroy the CUDA graphs of dropped steps, under the capture lock.
+    ``block=False`` returns at once while a capture runs (the capture
+    releases them when it ends).  Returns how many were destroyed."""
+    if not _CAPTURE_LOCK.acquire(blocking=block):
+        return 0
+    try:
+        return _reap()
+    finally:
+        _CAPTURE_LOCK.release()
 
 
 def _to_device(leaf, device: torch.device) -> torch.Tensor:
@@ -95,26 +135,33 @@ class Step:
     arguments bound (see the module docstring).  ``restore`` names the
     bound tensors that the warm-up changes and the capture must see as
     they were.  ``on_build`` runs once per build (the engine's
-    ``compile_counts``); a build that raises is retried by the next call,
-    as a JAX trace that fails is.  ``build_lock`` is held around a build
-    (the engine's lock, taken before the step's own)."""
+    ``compile_counts``), under the step's own lock: it must take no lock
+    that is held while a step is called.  A build that raises is retried
+    by the next call, as a JAX trace that fails is.  ``build_s`` is the
+    host seconds of the last build (warm-up and capture on the card)."""
 
     def __init__(self, fn: Callable, device: torch.device,
-                 on_build: Callable[[], None],
-                 build_lock: threading.RLock | None = None, *,
+                 on_build: Callable[[], None], *,
                  n_bound: int = 0, restore: tuple[int, ...] = ()):
         self.fn = fn
         self.device = device
         self._on_build = on_build
-        self._build_lock = build_lock or threading.RLock()
         self._n_bound = n_bound
         self._restore = restore
         self._lock = threading.Lock()
         self._built = False
+        self.build_s: float | None = None
         self._graph: torch.cuda.CUDAGraph | None = None
         self._bound: tuple = ()
         self._in_leaves: list[torch.Tensor] = []
         self._static_out = None
+
+    def __del__(self):
+        # destroyed under _CAPTURE_LOCK (release_graphs), not here: this
+        # runs on whichever thread drops the last reference
+        graph = getattr(self, "_graph", None)
+        if graph is not None and _DEAD is not None:
+            _DEAD.append(graph)
 
     @property
     def captured(self) -> bool:
@@ -126,15 +173,17 @@ class Step:
         bound, inputs = args[:self._n_bound], args[self._n_bound:]
         if self.device.type != "cuda":
             if not self._built:
-                with self._build_lock:
+                with self._lock:
                     if not self._built:
+                        t0 = time.perf_counter()
                         self._on_build()
                         out = self._eager(bound, inputs)
+                        self.build_s = time.perf_counter() - t0
                         self._built = True
                         return out
             return self._eager(bound, inputs)
         if self._graph is None:
-            with self._build_lock, self._lock:
+            with self._lock:
                 if self._graph is None:
                     self._capture(bound, inputs)
         leaves = tree_leaves(inputs)
@@ -158,6 +207,7 @@ class Step:
                 lambda leaf: _to_device(leaf, self.device), inputs))
 
     def _capture(self, bound, inputs) -> None:
+        t0 = time.perf_counter()
         self._on_build()
         # buffers of the step's own: a caller's device tensor is never a
         # static input (every call's copy-in would overwrite it)
@@ -165,24 +215,33 @@ class Step:
             lambda leaf: _to_device(leaf, self.device).clone(), inputs)
         saved = [bound[i].clone() for i in self._restore]
         # warm-up: builds the kernels and cuBLAS's workspace, eagerly
-        side = _warmup_stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
+        current = torch.cuda.current_stream(self.device)
+        side = _stream(_WARMUP_STREAMS, self.device)
+        side.wait_stream(current)
         with torch.no_grad(), torch.cuda.stream(side):
             self.fn(*bound, *static_in)
             for i, value in zip(self._restore, saved):
                 bound[i].copy_(value)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        cap = _stream(_CAPTURE_STREAMS, self.device)
         with _CAPTURE_LOCK:
+            _reap()
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.no_grad(), torch.cuda.graph(
-                        graph, capture_error_mode="thread_local"):
-                    static_out = self.fn(*bound, *static_in)
+                cap.wait_stream(current)
+                with torch.no_grad(), torch.cuda.stream(cap):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        static_out = self.fn(*bound, *static_in)
+                    finally:
+                        graph.capture_end()
             finally:
                 if collecting:
                     gc.enable()
+                _reap()
+        self.build_s = time.perf_counter() - t0
         self._in_leaves = tree_leaves(static_in)
         self._static_out = static_out
         # held, not just compared: the graph uses these addresses

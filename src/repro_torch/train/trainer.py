@@ -113,7 +113,9 @@ class Trainer:
     state are written atomically; on (re)start the newest readable
     checkpoint is restored onto ``device`` (the GPU unless the caller asks
     for the CPU).  ``crash_after`` is a test hook simulating preemption.
-    ``save_seconds`` holds the host time of each checkpoint save.
+    ``save_seconds`` holds the host time of each checkpoint save, and
+    ``start_step`` the step the last ``fit`` started from (> 0 after a
+    resume).
     """
 
     def __init__(self, loss_fn: Callable, init_params_fn: Callable,
@@ -126,6 +128,7 @@ class Trainer:
         self.init_params_fn = init_params_fn
         self.step_fn = make_train_step(loss_fn, tc)
         self.save_seconds: list[float] = []
+        self.start_step: int | None = None
 
     def init_or_resume(self, generator: torch.Generator, data_iter=None
                        ) -> TrainState:
@@ -152,7 +155,7 @@ class Trainer:
             ) -> tuple[TrainState, list[dict]]:
         state = self.init_or_resume(generator, data_iter)
         history = []
-        start = int(state.step)
+        start = self.start_step = int(state.step)
         t0 = time.time()
         for i in range(start, n_steps):
             batch = next(data_iter)

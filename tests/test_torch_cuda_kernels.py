@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card,
-the serving engine's steps captured as CUDA graphs, and the decode
-scheduler's fused step (a CUDA graph over the KV pool, updated in place).
+the serving engine's steps captured as CUDA graphs (also while the
+engine serves and swaps index epochs), and the decode scheduler's fused
+step (a CUDA graph over the KV pool, updated in place).
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use) and
 skip without one.  They import no JAX, so they run where only PyTorch is
@@ -318,6 +319,183 @@ def test_two_threads_replaying_one_step_get_their_own_rows(cuda):
         for out in got[i]:
             assert torch.equal(out.ids, want[i].ids)
             assert torch.equal(out.logits, want[i].logits)
+
+
+# ------------------------------------- the swap path: builds while serving --
+
+def _other_index(eng, seed):
+    from repro_torch.core.simhash import init_hyperplanes
+    theta = init_hyperplanes(torch.Generator(eng.device).manual_seed(seed),
+                             eng._w_aug.shape[1], eng.lss_cfg.k_bits,
+                             eng.lss_cfg.n_tables, device=eng.device)
+    return build_index(eng._w_aug, theta, eng.lss_cfg)
+
+
+def test_warm_capture_holds_no_engine_lock(cuda):
+    """``warm_epoch`` captures the new epoch's step while one thread
+    replays the serving step and another records chunks through
+    ``Engine._record`` (the runtime's completion thread): both go on
+    during the capture, which holds no engine lock, and the captured
+    step replays the eager step's bits."""
+    import threading
+    import time
+
+    from repro_torch.device import HostOutput
+    eng = _serving_engine(cuda)
+    g = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn(8, 32, generator=g, device=cuda)
+    serving = eng._step("lss", 8)
+    serving(x)                                       # built and captured
+    e = eng.prepare_epoch(_other_index(eng, 8))
+    new = eng._step("lss", 8, epoch=e)
+    fn, calls = new.fn, []
+    stop = threading.Event()
+    counts = {"replays": 0, "records": 0}
+
+    def held(xx):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:                 # inside the capture: both go on
+            n0 = dict(counts)
+            deadline = time.monotonic() + 60.0
+            while (any(counts[k] == n0[k] for k in counts)
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+            calls.append(all(counts[k] > n0[k] for k in counts))
+        return fn(xx)
+
+    new.fn = held
+    host = HostOutput(serving(x)).wait()
+
+    def replayer():
+        while not stop.is_set():
+            serving(x)
+            counts["replays"] += 1
+
+    def recorder():
+        while not stop.is_set():
+            eng._record(host, 8, 1e-3, [1e-3] * 8, None)
+            counts["records"] += 1
+            time.sleep(0.001)
+
+    threads = [threading.Thread(target=f) for f in (replayer, recorder)]
+    for t in threads:
+        t.start()
+    try:
+        eng.warm_epoch(e)                            # captures `new`
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60.0)
+    assert not any(t.is_alive() for t in threads)
+    # warm-up, capture, and replays and records made during the capture
+    assert calls == [False, True, True]
+    assert new.captured and eng.compile_counts[("lss", 8)] == 2
+    with torch.no_grad():
+        want = fn(x)
+    got = new(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.logits, want.logits)
+
+
+def test_epoch_dropped_during_a_capture(cuda):
+    """One thread drops an epoch whose steps hold captured graphs while
+    another captures: the graphs wait in ``step._DEAD`` until the
+    capture ends (a graph destroyed inside another thread's capture
+    invalidates it), then are destroyed, and the capture is valid."""
+    import threading
+    import time
+
+    from repro_torch.serve import step as step_mod
+    eng = _serving_engine(cuda)
+    x = torch.randn(8, 32, generator=torch.Generator(cuda).manual_seed(9),
+                    device=cuda)
+    eng._step("lss", 8)(x)                           # epoch 1's graph
+    e3 = eng.prepare_epoch(_other_index(eng, 10))
+    eng.pin_epoch(e3)                                # kept by the swap
+    e2 = eng.prepare_epoch(_other_index(eng, 11))
+    new = eng._step("lss", 8, epoch=e3)
+    fn = new.fn
+    inside, dropped = threading.Event(), threading.Event()
+
+    def held(xx):
+        if torch.cuda.is_current_stream_capturing():
+            inside.set()
+            assert dropped.wait(60.0)
+        return fn(xx)
+
+    new.fn = held
+    capture = threading.Thread(target=lambda: new(x))
+    capture.start()
+    assert inside.wait(60.0)
+    dead0 = len(step_mod._DEAD)
+    swap = threading.Thread(target=lambda: eng._swap_prepared(e2))
+    swap.start()                                     # drops epoch 1
+    deadline = time.monotonic() + 60.0
+    while len(step_mod._DEAD) == dead0 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    assert len(step_mod._DEAD) > dead0, "no graph was handed over"
+    assert swap.is_alive()                           # waits on the capture
+    dropped.set()
+    capture.join(timeout=60.0)
+    swap.join(timeout=60.0)
+    assert not capture.is_alive() and not swap.is_alive()
+    assert step_mod._DEAD == [] and set(eng._epochs) == {e2, e3}
+    with torch.no_grad():
+        want = fn(x)
+    got = new(x)
+    torch.cuda.synchronize()
+    assert new.captured
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.logits, want.logits)
+
+
+def test_swap_index_under_a_running_runtime(cuda):
+    """Three ``swap_index`` calls while an ``AsyncRuntime`` serves an open
+    loop: no future fails, each result is bit for bit a cold engine's on
+    one of the indexes, and afterwards the engine serves a cold engine's
+    results on the last one."""
+    import threading
+    import time
+
+    from repro_torch.serve import AsyncRuntime, Engine
+    from repro_torch.serve.runtime import submit_open_loop
+    eng = _serving_engine(cuda, buckets=(1, 2, 4, 8, 16))
+    for b in eng.batcher.buckets:
+        eng._step("lss", b)(np.zeros((b, 32), np.float32))
+    indexes = [eng.index] + [_other_index(eng, 20 + i) for i in range(3)]
+    xs = np.random.default_rng(12).standard_normal((3000, 32)).astype(
+        np.float32)
+
+    def swapper():
+        for idx in indexes[1:]:
+            time.sleep(0.25)
+            eng.swap_index(idx)
+
+    rt = AsyncRuntime(eng, head="lss", max_queue=4000, policy="block")
+    th = threading.Thread(target=swapper)
+    th.start()
+    futs, _ = submit_open_loop(rt, xs, 3000.0, seed=1)
+    rt.drain(timeout=300.0)
+    th.join(timeout=300.0)
+    rt.close(timeout=60.0)
+    assert not th.is_alive() and eng.index is indexes[-1]
+    assert sum(f.exception(timeout=1.0) is not None for f in futs) == 0
+    res = [f.result(timeout=1.0) for f in futs]
+    colds = []
+    for idx in indexes:
+        cold = Engine(None, eng.w, None, eng.lss_cfg, top_k=5, head="lss",
+                      buckets=(16,))
+        cold._set_index(idx)
+        out = cold.rank(xs, record=False)
+        colds.append((out.logits.cpu().numpy(), out.ids.cpu().numpy()))
+    for i, r in enumerate(res):
+        assert any(np.array_equal(r.logits, lg[i]) and
+                   np.array_equal(r.ids, ids[i]) for lg, ids in colds), i
+    after = eng.rank(xs[:256], record=False)
+    assert np.array_equal(after.logits.cpu().numpy(), colds[-1][0][:256])
+    assert np.array_equal(after.ids.cpu().numpy(), colds[-1][1][:256])
+    assert list(eng._epochs) == [eng.index_epoch]
 
 
 # ------------------------------------------------ the decode step's graph --

@@ -77,13 +77,13 @@ def test_reduced_config_mirrors_jax(arch):
 def test_full_configs_mirror_jax():
     from repro.configs.registry import get_config
     for port in (qwen2_0_5b, qwen3_4b):
-        spec = get_config(port.CONFIG.name)
-        j, t = spec.model_cfg, port.CONFIG
+        spec = get_config(port.CONFIG.arch_id)
+        j, t = spec.model_cfg, port.CONFIG.model_cfg
         assert t.param_count() == j.param_count()
         assert t._asdict() | {"dtype": None} == \
             j._asdict() | {"dtype": None}
         assert t.dtype == torch.bfloat16
-        assert port.LSS._asdict() == spec.lss._asdict()
+        assert port.CONFIG.lss._asdict() == spec.lss._asdict()
 
 
 def test_init_params_shapes_and_dtypes_mirror_jax():

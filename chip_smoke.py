@@ -71,17 +71,34 @@ port's paths at Delicious-200K's full width (random weights from a seed):
 * ``launch``: ``repro_torch.launch.serve`` (streaming decode and async
   scoring, each with the index refreshed every second) and
   ``repro_torch.launch.train`` (twice on one directory, the second run
-  resuming) as subprocesses at full width.
+  resuming) as subprocesses at full width;
+* vocab-sharded serving (after ``serve_engine``, on ``train_wol``'s
+  trained WOL): ``sharded_index``, ``shard_index`` into 1, 2 and 4 shards
+  with fp32 and int8 slabs (the last of 2 and of 4 padded by one row),
+  each shard's ``lss_topk`` against its plain version, no padded id, the
+  1-shard head bit for bit the ``lss`` head, the in-process oracle timed;
+  ``sharded_engine``, ``Engine(head="lss-sharded")`` on a one-rank NCCL
+  process group, its captured steps (the merge after the replay) bit for
+  bit the ``lss`` head over 2,048 rows; ``fleet``, two processes on the
+  one card over gloo as 2 hosts (this script with ``--fleet-worker``),
+  each building only its shard: predict, ``rank``, the AsyncRuntime at
+  1,000 req/s, a committed and an aborted ``leader_swap_index``, bit for
+  bit a one-process 2-shard oracle; and (after ``launch``)
+  ``fleet_launch``: the serve launcher as a two-process fleet at full
+  width (``--head lss-sharded --coordinator ... --process-id i``),
+  generate and async with refresh, and ``--mode decode`` refused.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after (``train_wol``: after each of its stages; the
 paper phases: each setting, query set or sweep); a kernel of the path
 that was not launched fails the run.  Checks and timings made inside a
-path's run do not count.  ``serve_engine``'s and ``decode``'s steps are
-CUDA graphs, whose replays call no wrapper: their wrappers count each
-step's warm-up and capture, and ``torch.profiler`` counts the kernels the
-replays ran.  The launchers run in their own processes and print their
-wrappers' counts, which the kernels line reports.
+path's run do not count.  ``serve_engine``'s, ``sharded_engine``'s,
+``fleet``'s and ``decode``'s steps are CUDA graphs, whose replays call no
+wrapper: their wrappers count each step's warm-up and capture, and
+``torch.profiler`` counts the kernels the replays ran (in ``fleet``, in
+each process's serving window).  The launchers run in their own
+processes and print their wrappers' counts, which the kernels line
+reports.
 
 Every phase prints one JSON line; a failed check or an exception exits
 non-zero.  The line before the last is the card's name and power limit
@@ -126,12 +143,17 @@ try:
                                       lss_predict, precision_at_k, retrieve,
                                       sparse_logits_bucketed,
                                       sparse_logits_gather)
+    from repro_torch.core.sharded import (local_part, make_multihost_predict,
+                                          make_sharded_predict,
+                                          multihost_merge, topk_merge)
     from repro_torch.core.simhash import (augment_neurons, augment_queries,
                                           init_hyperplanes, unit)
     from repro_torch.core.tables import build_tables, bucketize_weights
     from repro_torch.core.topk import NEG_INF, topk_lowest_index
     from repro_torch.data.pipeline import ShardedBatchIterator
     from repro_torch.data.synthetic import lm_dataset, xc_dataset
+    from repro_torch.distributed import (ServingMesh, init_distributed,
+                                         shutdown_distributed)
     from repro_torch.examples import train_wol
     from repro_torch.kernels import _build, registry
     from repro_torch.kernels.bucket_logits import bucket_logits
@@ -151,6 +173,10 @@ try:
     from repro_torch.obs.export import prometheus_text
     from repro_torch.serve import AsyncRuntime, Engine, LMDecoder
     from repro_torch.serve import step as step_mod
+    from repro_torch.serve.heads import (make_lss_head,
+                                         make_sharded_lss_head, shard_index)
+    from repro_torch.serve.multihost import (follower_loop, init_multihost,
+                                             stop_followers)
     from repro_torch.serve.refresh import IndexRefresher, RefreshConfig
     from repro_torch.serve.step import release_graphs
     from repro_torch.serve.runtime import (submit_decode_open_loop,
@@ -216,6 +242,10 @@ CAPTURE_SWAPS = 6          # refresh_capture: swaps, captures in turns
 REFRESH_MARGIN_S = 0.05    # a request this close after a swap counts in it
 LAUNCH_QPS = 4.0           # launch: decode sessions a second (the pool
                            # drains between them, so swaps reach decode)
+SHARD_COUNTS = (1, 2, 4)   # sharded_index: vocab shards of the trained WOL
+FLEET_QPS = 1000.0         # fleet, fleet_launch: the open loop's rate
+FLEET_TIMEOUT_S = 300      # fleet: the two processes, killed after this
+FLEET_LAUNCH_TIMEOUT_S = 600   # fleet_launch: one two-process launch
 # decode: the full head's top logit against an fp32 GEMM of the same
 # hidden states (both fp32 GEMMs; scaled like LOGIT_ATOL)
 DECODE_FULL_TOL = 1e-5
@@ -1605,6 +1635,524 @@ def phase_serve_engine(dev, smi, model, index, lss_cfg, data, counters):
     return device_launches
 
 
+# ------------------------------------------------ vocab-sharded serving --
+
+def run_fleet(cmds, timeout, what):
+    """Start every command at once from the repository root and wait for
+    all; a fleet that outlives ``timeout`` is killed and fails the run.
+    Returns each process's exit code and output."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs, t_end = [], time.monotonic() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, t_end - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"{what}: the fleet outlived {timeout} s and was "
+                           f"killed") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [p.returncode for p in procs], outs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded_index(dev, smi, model, index, lss_cfg, data, counters):
+    """``shard_index`` of ``train_wol``'s trained WOL into 1, 2 and 4
+    vocab shards, with fp32 and int8 slabs (205,443 is odd: the last of 2
+    and of 4 shards has a 1-row padded tail).  The counted run: the
+    in-process oracle (``make_sharded_predict`` over a one-process mesh:
+    each shard's ``lss_topk``, then the merge) once on the first 256
+    training rows, one ``lss_topk`` launch a shard.  Outside the counts:
+    each shard's ``lss_topk`` against its plain version per the parity
+    contract, no padded id in any shard's candidates or winners, the
+    1-shard head bit for bit the ``lss`` head, and device ms of each
+    shard's kernel, of the merge and of the whole oracle.  Returns the
+    wrapper launches of the counted runs."""
+    t_phase = time.perf_counter()
+    w_aug = augment_neurons(model.w_out, model.b_out)
+    m = w_aug.shape[0]
+    theta = index.theta
+    q = model.embed(torch.from_numpy(data.x[:BATCH]).to(dev))
+    q_aug = augment_queries(q)
+    launches, n_rows, n_excl = {}, 0, 0
+    for n in SHARD_COUNTS:
+        for sdt in ("fp32", "int8"):
+            cfg = lss_cfg._replace(slab_dtype=sdt)
+            t0 = time.perf_counter()
+            stack, _, m_local = shard_index(w_aug, theta, cfg, n)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            mesh = ServingMesh.local(n, dev)
+            fwd = make_sharded_predict(mesh, m_local, TOP_K, with_aux=True)
+            reset(counters)
+            logits, ids, sample = fwd(q, stack)
+            key = f"{n}:{sdt}"
+            launches[key] = read(counters)
+            require(launches[key]["lss_topk_cuda"] == n,
+                    f"sharded_index {key}: launches {launches[key]}")
+            require(bool(((ids >= -1) & (ids < m)).all()),
+                    f"sharded_index {key}: a merged id outside the vocab")
+            with uncounted(counters):
+                shards = []
+                for s, idx in enumerate(stack):
+                    t = idx.tables
+                    n_valid = min(max(m - s * m_local, 0), m_local)
+                    args = (q_aug, theta, t.table_ids, idx.w_bucketed)
+                    rows, check, got = compare_lss_topk(*args, idx.w_scale,
+                                                        TOP_K)
+                    require(int(got[3].max()) < n_valid
+                            and int(got[1].max()) < n_valid
+                            and int(t.table_ids.max()) < n_valid,
+                            f"sharded_index {key} shard {s}: a padded id")
+                    n_rows += q_aug.shape[0]
+                    n_excl += int((~rows).sum())
+                    shards.append({
+                        "shard": s, "rows": n_valid,
+                        "padded_rows": m_local - n_valid, "P": t.capacity,
+                        "n_dropped": int(t.n_dropped.sum()),
+                        "excluded_rows": int((~rows).sum()), **check,
+                        "ms": time_ms(lambda: lss_topk(
+                            *args, top_k=TOP_K, w_scale=idx.w_scale))})
+                part = local_part(q, stack, None, k=TOP_K, shard0=0,
+                                  m_local=m_local)
+                merge_ms = time_ms(lambda: topk_merge(part.logits,
+                                                      part.gids, TOP_K))
+                oracle_ms = time_ms(lambda: fwd(q, stack))
+                same_as_lss = None
+                if n == 1:
+                    ref_index = (index if sdt == "fp32" else
+                                 build_index(w_aug, theta, cfg))
+                    a = make_sharded_lss_head(stack, None, mesh, m_local,
+                                              TOP_K)(q)
+                    b = make_lss_head(ref_index, None, TOP_K)(q)
+                    same_as_lss = all(same_tensor_bits(x, y)
+                                      for x, y in zip(a[:3], b[:3]))
+                    require(same_as_lss, f"sharded_index {key}: the 1-shard "
+                            f"head differs from the lss head")
+            emit({"phase": "sharded_index", "n_shards": n,
+                  "slab_dtype": sdt, "m": m, "m_local": m_local,
+                  "build_s": build_s, "shards": shards,
+                  "mean_sample": float(sample.float().mean()),
+                  "merge_ms": merge_ms, "oracle_ms": oracle_ms,
+                  "one_shard_head_is_lss_head": same_as_lss,
+                  "launches": launches[key], "device": smi})
+            del stack, part
+    require(n_excl < MAX_EXCLUDED_FRAC * n_rows,
+            f"sharded_index: {n_excl} of {n_rows} rows lack the margin")
+    emit({"phase": "sharded_index_done",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_sharded_engine(dev, smi, model, index, lss_cfg, data, counters):
+    """``Engine(head="lss-sharded")`` on a process group of one rank over
+    NCCL: every (lss-sharded, bucket) step captured (the graph ends at
+    the shard's winners; the NCCL gather, the merge and the sample sum
+    run after the replay), then ``SERVE_REQUESTS`` training rows in
+    ragged groups under ``torch.profiler`` (one ``lss_topk`` kernel a
+    group), bit for bit the ``lss`` head's results on the same groups,
+    and host ms a group at each bucket beside the ``lss`` head's.
+    Returns the profiler's ``lss_topk`` count."""
+    t_phase = time.perf_counter()
+    require(init_distributed(f"127.0.0.1:{free_port()}", 1, 0),
+            "sharded_engine: no process group")
+    try:
+        n = SERVE_REQUESTS
+        x, labels = data.x[:n], data.labels[:n]
+        eng = Engine(lambda batch: model.embed(batch["x"]),
+                     model.w_out.float(), model.b_out.float(), lss_cfg,
+                     top_k=TOP_K, head="lss-sharded", audit_rate=0.0)
+        eng._set_index(index)
+        mesh = eng._get_mesh()
+        require(mesh.backend == "nccl" and mesh.world == 1
+                and mesh.group is not None,
+                f"sharded_engine: mesh {mesh}")
+        buckets = eng.batcher.buckets
+        reset(counters)
+        t0 = time.perf_counter()
+        for kind in ("lss-sharded", "lss"):
+            for bk in buckets:
+                eng._step(kind, bk)({"x": x[:bk]})
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        require(all(eng._step(k, bk).captured for k in ("lss-sharded", "lss")
+                    for bk in buckets), "sharded_engine: a step not captured")
+        from torch.profiler import ProfilerActivity, profile
+        eng.reset_metrics()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res, sizes = serve_pattern(eng, x, labels, 0)
+            torch.cuda.synchronize()
+        launches = read(counters)
+        device_launches = device_kernel_count(prof, "lss_topk")
+        nccl_kernels = device_kernel_count(prof, "nccl")
+        m_sh = eng.metrics()
+        require(launches["lss_topk_cuda"] == 4 * len(buckets),
+                f"sharded_engine: wrapper launches {launches}, not a warm-up "
+                f"and a capture of lss_topk for each of {2 * len(buckets)} "
+                f"steps")
+        require(device_launches == len(sizes),
+                f"sharded_engine: the profiler saw {device_launches} "
+                f"lss_topk kernels for {len(sizes)} groups")
+        with uncounted(counters):
+            eng.reset_metrics()
+            lss_res, _ = serve_pattern(eng, x, labels, 0, head="lss")
+            sh_lg, sh_ids = stack_results(res)
+            lss_lg, lss_ids = stack_results(lss_res)
+            require(same_bits(sh_lg, lss_lg) and same_bits(sh_ids, lss_ids),
+                    "sharded_engine: lss-sharded results differ from lss")
+            m_lss = eng.metrics()
+            timing = []
+            for bk in buckets:
+                xb = {"x": x[:bk]}
+                s_sh, s_lss = eng._step("lss-sharded", bk), eng._step("lss",
+                                                                      bk)
+                timing.append({"bucket": bk,
+                               "lss_sharded_ms": host_ms(lambda: s_sh(xb)),
+                               "lss_ms": host_ms(lambda: s_lss(xb))})
+        emit({"phase": "sharded_engine", "backend": mesh.backend,
+              "world": mesh.world, "requests": n, "groups": len(sizes),
+              "build_s": build_s, "wrapper_launches": launches,
+              "profiler_lss_topk_kernels": device_launches,
+              "profiler_nccl_kernels": nccl_kernels,
+              "lss_sharded_vs_lss": "bit-identical",
+              "avg_sample_size": m_sh.avg_sample_size,
+              "avg_sample_size_lss": m_lss.avg_sample_size,
+              "host_ms_a_group": timing,
+              "seconds": time.perf_counter() - t_phase, "device": smi})
+        del eng
+    finally:
+        shutdown_distributed()
+    return device_launches
+
+
+def fleet_worker(rank: int, tmp: str, port: int) -> int:
+    """One rank of the ``fleet`` phase (``chip_smoke.py --fleet-worker
+    RANK DIR PORT``): two processes on the one card, 2 hosts of 1 rank
+    over gloo.  Both ranks: ``shard_index`` of ONLY their own rows (read
+    from the WOL in DIR) and ``make_multihost_predict`` on every query,
+    bit for bit the oracle; the merge alone timed.  Then an
+    ``Engine(spmd=...)``: the leader serves every query through ``rank``
+    and through the AsyncRuntime at ``FLEET_QPS``, swaps to θ2 (bit for
+    bit a cold engine on it), fails a swap to θ3 at
+    ``MULTIHOST_SWAP_COMMIT``, and stops the follower, which replays its
+    opcodes.  Each rank's serving window (the leader's from ``rank`` to
+    the aborted swap, the follower's ``follower_loop``) runs under
+    ``torch.profiler``, whose ``lss_topk`` kernels must be one a group
+    served plus one a step build.  Prints one ``FLEET {...}`` line."""
+    d = Path(tmp)
+    cfg = LSSConfig(**json.loads((d / "config.json").read_text()))
+    ctx = init_multihost(f"127.0.0.1:{port}", 2, rank)
+    require(ctx is not None and ctx.mesh.backend == "gloo"
+            and (ctx.mesh.n_hosts, ctx.mesh.ranks_per_host) == (2, 1),
+            f"fleet rank {rank}: {ctx and ctx.mesh}")
+    dev = ctx.mesh.device
+    w_np = np.load(d / "w.npy", mmap_mode="r")
+    b_np = np.load(d / "b.npy")
+    thetas = torch.from_numpy(np.load(d / "theta.npy")).to(dev)
+    q = np.load(d / "q.npy")
+    oracle = np.load(d / "oracle.npz")
+    m, n = w_np.shape[0], q.shape[0]
+    qt = torch.from_numpy(q).to(dev)
+    counter = lss_topk_ops.lss_topk_cuda
+    report = {"rank": rank, "device": str(dev),
+              "backend": ctx.mesh.backend}
+
+    # 1. only this rank's rows: the shard of shard_range, lockstep predict
+    r0, r1 = ctx.row_range(m)
+    t0 = time.perf_counter()
+    w_aug = augment_neurons(
+        torch.from_numpy(np.ascontiguousarray(w_np[r0:r1])).to(dev),
+        torch.from_numpy(b_np[r0:r1]).to(dev))
+    local, _, m_local = shard_index(w_aug, thetas[0], cfg, ctx.n_shards,
+                                    shard_range=ctx.shard_range(),
+                                    m_total=m)
+    torch.cuda.synchronize()
+    report["shard_build_s"] = time.perf_counter() - t0
+    report["rows"] = [r0, r1]
+    fwd = make_multihost_predict(ctx.mesh, m_local, TOP_K, with_aux=True)
+    outs = [fwd(qt[i:i + BATCH], local) for i in range(0, n, BATCH)]
+    got = [torch.cat(o).cpu().numpy() for o in zip(*outs)]
+    require(all(same_bits(g, oracle[f"{k}0"]) for g, k in
+                zip(got, ("logits", "ids", "sample"))),
+            f"fleet rank {rank}: multihost predict differs from the oracle")
+    part = local_part(qt[:128], local, None, k=TOP_K,
+                      shard0=ctx.shard_range()[0], m_local=m_local)
+    times = []
+    for _ in range(TIME_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multihost_merge(part, TOP_K, ctx.mesh)
+        times.append((time.perf_counter() - t0) * 1e3)
+    report["merge_ms_b128"] = float(np.median(times))
+    del local, w_aug, part
+
+    # 2. the engine: the leader serves, the follower replays
+    eng = Engine(None, torch.from_numpy(np.asarray(w_np)).to(dev),
+                 torch.from_numpy(b_np).to(dev), cfg, top_k=TOP_K,
+                 head="lss-sharded", spmd=ctx)
+    eng._set_index(build_index(eng._w_aug, thetas[0], cfg))
+    counter.launches = 0
+    # the serving window runs under torch.profiler on both ranks: its
+    # lss_topk kernels must be one a group served (a graph replay) plus
+    # one a step build (the eager warm-up; the capture runs nothing)
+    from torch.profiler import ProfilerActivity, profile
+    window = profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA])
+    if ctx.is_leader:
+        def check(out, k, what):
+            require(same_bits(out.logits.cpu().numpy(), oracle[f"logits{k}"])
+                    and same_bits(out.ids.cpu().numpy(), oracle[f"ids{k}"]),
+                    f"fleet: {what} differs from the oracle")
+
+        with window:
+            t0 = time.perf_counter()
+            check(eng.rank(q), 0, "rank")
+            report["rank_s"] = time.perf_counter() - t0
+            rt = AsyncRuntime(eng, max_queue=4 * n, policy="block")
+            futs, _ = submit_open_loop(rt, list(q), FLEET_QPS, seed=0)
+            rt.drain(timeout=300.0)
+            res = [f.result(timeout=60.0) for f in futs]
+            stats = rt.stats()
+            rt.close(timeout=60.0)
+            lg, ids = stack_results(res)
+            require(same_bits(lg, oracle["logits0"])
+                    and same_bits(ids, oracle["ids0"]),
+                    "fleet: the runtime's results differ from the oracle")
+            require(stats.n_completed == n and stats.n_shed_queue == 0
+                    and stats.n_shed_deadline == 0, "fleet: the runtime shed")
+            report["runtime"] = {
+                k: getattr(stats, k) for k in (
+                    "n_completed", "throughput_rps", "latency_p50_ms",
+                    "latency_p95_ms", "latency_p99_ms",
+                    "avg_batch_occupancy")}
+            e1 = eng.index_epoch
+            t0 = time.perf_counter()
+            e2 = eng.swap_index(build_index(eng._w_aug, thetas[1], cfg))
+            report["swap_s"] = time.perf_counter() - t0
+            check(eng.rank(q), 2, "rank after the swap")
+            try:
+                with faults.injected(faults.MULTIHOST_SWAP_COMMIT,
+                                     RuntimeError("failed before commit")):
+                    eng.swap_index(build_index(eng._w_aug, thetas[2], cfg))
+                raise SmokeFailure("fleet: the injected swap went through")
+            except RuntimeError:
+                pass
+            require(eng.index_epoch == e2 > e1,
+                    f"fleet: epochs {e1} -> {e2} -> {eng.index_epoch}")
+            check(eng.rank(q), 2, "rank after the aborted swap")
+            torch.cuda.synchronize()
+        # every message in the window but the two swaps' payload and
+        # commit flag is a group served
+        groups = ctx.channel.seq - 2 * 2
+        builds, launches = eng.n_builds(), counter.launches
+        # timed outside the leader's window (the follower's replays of
+        # these groups stay in its own)
+        report["host_ms_b128"] = host_ms(
+            lambda: eng.rank(q[:128], record=False))
+        stop_followers(ctx)
+        # every message but STOP and the two swaps' commit flags is an op
+        report["ops"] = ctx.channel.seq - 1 - 2
+    else:
+        with window:
+            report["ops"] = follower_loop(eng, ctx)
+            torch.cuda.synchronize()
+        groups = report["ops"] - 2           # less the two OP_SWAP_INDEX
+        builds, launches = eng.n_builds(), counter.launches
+    device = device_kernel_count(window, "lss_topk")
+    require(launches == 2 * builds,
+            f"fleet rank {rank}: wrapper launches {launches}, not a warm-up "
+            f"and a capture for each of {builds} step builds")
+    require(device == groups + builds,
+            f"fleet rank {rank}: the profiler saw {device} lss_topk kernels "
+            f"for {groups} groups and {builds} step builds")
+    torch.cuda.synchronize()
+    report.update(epoch=eng.index_epoch, messages=ctx.channel.seq,
+                  groups=groups, step_builds=builds,
+                  lss_topk_launches=launches,
+                  profiler_lss_topk_kernels=device,
+                  max_allocated_mb=torch.cuda.max_memory_allocated(dev)
+                  / 2 ** 20,
+                  reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20)
+    del eng
+    shutdown_distributed()
+    print("FLEET " + json.dumps(report), flush=True)
+    return 0
+
+
+def phase_fleet(dev, smi, model, index, lss_cfg, data):
+    """Two processes share the one card over gloo, as 2 hosts of 1 rank
+    (so the two-stage merge runs): ``fleet_worker`` on the trained WOL,
+    which this process writes to a temporary directory with the first
+    ``SERVE_REQUESTS`` training rows' embeddings, three θ (the trained
+    one, θ2 and θ3 from a seeded generator) and the oracle: a cold
+    one-process engine over 2 shards (``ServingMesh.local(2)``) on θ and
+    θ2.  Checks both ranks' reports: every result bit for bit the oracle,
+    the follower's ops and messages the leader's, every rank on the
+    committed epoch after the aborted swap.  Returns the ranks' reports."""
+    t_phase = time.perf_counter()
+    n = SERVE_REQUESTS
+    w, b = model.w_out.float(), model.b_out.float()
+    q = torch.cat([model.embed(torch.from_numpy(data.x[i:i + BATCH]).to(dev))
+                   for i in range(0, n, BATCH)])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    thetas = [index.theta] + [
+        init_hyperplanes(gen, w.shape[1] + 1, lss_cfg.k_bits,
+                         lss_cfg.n_tables, device=dev) for _ in range(2)]
+    oracle = {}
+    for k in (0, 1):
+        cold = Engine(None, w, b, lss_cfg, top_k=TOP_K, head="lss-sharded",
+                      mesh=ServingMesh.local(2, dev), audit_rate=0.0)
+        cold._set_index(build_index(cold._w_aug, thetas[k], lss_cfg))
+        out = cold.rank(q, record=False)
+        tag = "0" if k == 0 else "2"
+        oracle.update({f"logits{tag}": out.logits.cpu().numpy(),
+                       f"ids{tag}": out.ids.cpu().numpy(),
+                       f"sample{tag}": out.sample_size.cpu().numpy()})
+        del cold
+    with tempfile.TemporaryDirectory(prefix="fleet_") as tmp:
+        d = Path(tmp)
+        np.save(d / "w.npy", w.cpu().numpy())
+        np.save(d / "b.npy", b.cpu().numpy())
+        np.save(d / "q.npy", q.cpu().numpy())
+        np.save(d / "theta.npy", torch.stack(thetas).cpu().numpy())
+        np.savez(d / "oracle.npz", **oracle)
+        (d / "config.json").write_text(json.dumps(lss_cfg._asdict()))
+        wol_mb = (d / "w.npy").stat().st_size / 2 ** 20
+        port = free_port()
+        t0 = time.perf_counter()
+        rcs, outs = run_fleet(
+            [[sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-worker",
+              str(r), tmp, str(port)] for r in range(2)],
+            FLEET_TIMEOUT_S, "fleet")
+        fleet_s = time.perf_counter() - t0
+    for r, (rc, out) in enumerate(zip(rcs, outs)):
+        require(rc == 0, f"fleet: rank {r} exited {rc}:\n{out[-4000:]}")
+    reports = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("FLEET ")]
+        require(lines, f"fleet: no report in\n{out[-3000:]}")
+        reports.append(json.loads(lines[-1][len("FLEET "):]))
+    lead, follow = reports
+    require(follow["ops"] == lead["ops"]
+            and follow["messages"] == lead["messages"],
+            f"fleet: follower {follow['ops']} ops / {follow['messages']} "
+            f"messages, leader {lead['ops']} / {lead['messages']}")
+    require(follow["epoch"] == lead["epoch"],
+            f"fleet: epochs {lead['epoch']} / {follow['epoch']}")
+    require(all(r["profiler_lss_topk_kernels"] > 0 for r in reports),
+            "fleet: a rank ran no lss_topk")
+    emit({"phase": "fleet", "processes": 2, "hosts": 2, "backend": "gloo",
+          "requests": n, "qps": FLEET_QPS, "wol_mb": wol_mb,
+          "results": "bit-identical to the one-process 2-shard oracle",
+          "fleet_s": fleet_s, "reports": reports,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    return reports
+
+
+def fleet_launcher_lines(out, what):
+    launches = ast.literal_eval(grab(r"kernel launches: (\{.*\})", out,
+                                     f"{what} kernel launches").group(1))
+    backend = grab(r"multihost: process \d/2 \((?:leader|follower)\), 2 "
+                   r"vocab shards, 2 hosts x 1, backend (\w+) on (\S+)",
+                   out, f"{what} multihost").groups()
+    return launches, backend
+
+
+def phase_fleet_launch(smi):
+    """The serve launcher as a user runs it, as a fleet of two processes
+    on the one card (``--head lss-sharded --coordinator --num-processes 2
+    --process-id i``) at Qwen2-0.5B full width with 20 training steps:
+    ``--mode generate`` (16 prompts x 32 tokens, mirrored), then
+    ``--runtime async`` with the index refreshed every second on the
+    leader; every prompt and request served, a swap and no refresher
+    failure, each process's kernels launched; and ``--mode decode`` with
+    the fleet flags, which both processes refuse before the process
+    group starts.  Returns each run's kernel launches by rank."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def fleet(extra, timeout=FLEET_LAUNCH_TIMEOUT_S):
+        port = free_port()
+        t0 = time.perf_counter()
+        rcs, outs = run_fleet(
+            [[sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+              "qwen2-0.5b", "--train-steps", "20", "--head", "lss-sharded",
+              *extra, "--coordinator", f"127.0.0.1:{port}",
+              "--num-processes", "2", "--process-id", str(i)]
+             for i in range(2)], timeout, "fleet_launch")
+        return rcs, outs, time.perf_counter() - t0
+
+    runs, launches = {}, {}
+    rcs, (lead, follow), secs = fleet([])
+    require(rcs == [0, 0], f"fleet_launch generate: exit codes {rcs}:\n"
+            f"{lead[-3000:]}\n{follow[-3000:]}")
+    require("decoded (16, 32) tokens on 2 processes; head=lss-sharded"
+            in lead and "follower 1: 1 ops served" in follow,
+            "fleet_launch generate: prompts not served")
+    launches["generate"] = {}
+    for rank, out in enumerate((lead, follow)):
+        n, backend = fleet_launcher_lines(out, "generate")
+        require(backend[0] == "gloo" and n["lss_topk_cuda"] > 0
+                and n["simhash_codes_cuda"] > 0,
+                f"fleet_launch generate rank {rank}: {backend} {n}")
+        launches["generate"][rank] = n
+    runs["generate"] = {"seconds": secs, "backend": backend,
+                        "launches": launches["generate"]}
+
+    rcs, (lead, follow), secs = fleet(
+        ["--runtime", "async", "--qps", str(FLEET_QPS),
+         "--refresh-interval", "1"])
+    require(rcs == [0, 0], f"fleet_launch async: exit codes {rcs}:\n"
+            f"{lead[-3000:]}\n{follow[-3000:]}")
+    refresh, _, _ = launcher_counts(lead)
+    lat = grab(r"p50=([\d.]+) p95=([\d.]+) p99=([\d.]+) ms \(incl", lead,
+               "latency").groups()
+    ops = int(grab(r"follower 1: (\d+) ops served", follow, "ops").group(1))
+    require("512/512 served" in lead, "fleet_launch async: requests lost")
+    require(refresh["failures"] == 0 and refresh["swaps"] >= 1,
+            f"fleet_launch async: refresher {refresh}")
+    require("index refresh" not in follow,
+            "fleet_launch async: a follower refreshed")
+    launches["async"] = {}
+    for rank, out in enumerate((lead, follow)):
+        n, _ = fleet_launcher_lines(out, "async")
+        require(n["lss_topk_cuda"] > 0 and n["simhash_codes_cuda"] > 0,
+                f"fleet_launch async rank {rank}: {n}")
+        launches["async"][rank] = n
+    runs["async"] = {"seconds": secs, "refresh": refresh,
+                     "follower_ops": ops,
+                     "latency_ms": dict(zip(("p50", "p95", "p99"),
+                                            map(float, lat))),
+                     "launches": launches["async"]}
+
+    rcs, outs, secs = fleet(["--mode", "decode"], timeout=120)
+    require(all(rc not in (0, None) for rc in rcs)
+            and all("--mode decode is not supported with multi-process"
+                    in o and "multihost:" not in o for o in outs),
+            f"fleet_launch decode: not refused before the group: {rcs}")
+    runs["decode_refused"] = {"exit_codes": rcs, "seconds": secs}
+    emit({"phase": "fleet_launch", **runs, "qps": FLEET_QPS,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    return launches
+
+
 # ------------------------------------------------------ streaming decode --
 
 def decode_prompts(vocab):
@@ -2663,6 +3211,14 @@ def main() -> int:
     serve_launches = phase_serve_engine(dev, smi, res["model"], res["index"],
                                         res["lss_config"], res["data"],
                                         counters)
+    sharded_launches = phase_sharded_index(
+        dev, smi, res["model"], res["index"], res["lss_config"], res["data"],
+        counters)
+    sharded_engine_device = phase_sharded_engine(
+        dev, smi, res["model"], res["index"], res["lss_config"], res["data"],
+        counters)
+    fleet_reports = phase_fleet(dev, smi, res["model"], res["index"],
+                                res["lss_config"], res["data"])
     refresh_launches, injected = phase_refresh(dev, smi, res, counters)
     del res
     decode_launches, decode_device, decode_state = phase_decode(
@@ -2671,17 +3227,25 @@ def main() -> int:
                                                    decode_state, injected)
     del decode_state
     launch_launches = phase_launch(smi)
+    fleet_launch_launches = phase_fleet_launch(smi)
     for entry in line["kernels"][:2]:
         name = entry["name"] + "_cuda"
         entry["launches_by_path"] = {
             "main_path": entry["launches"],
             "refresh": refresh_launches[name],
             "refresh_decode": refresh_decode_launches[name],
-            "launch": {run: n[name] for run, n in launch_launches.items()}}
+            "launch": {run: n[name] for run, n in launch_launches.items()},
+            "fleet_launch": {run: {rank: n[name] for rank, n in by.items()}
+                             for run, by in fleet_launch_launches.items()}}
     line["kernels"][0]["launches_by_path"]["decode"] = \
         decode_launches["simhash_codes_cuda"]
     line["kernels"][1]["launches_by_path"].update(
-        serve_engine=serve_launches, decode=decode_device)
+        serve_engine=serve_launches, decode=decode_device,
+        sharded_index={k: n["lss_topk_cuda"]
+                       for k, n in sharded_launches.items()},
+        sharded_engine=sharded_engine_device,
+        fleet={r["rank"]: r["profiler_lss_topk_kernels"]
+               for r in fleet_reports})
     phase_preemption(dev)
     phase_paper_table1(dev, smi, counters)
     phase_paper_table2(dev, smi, counters)
@@ -2696,4 +3260,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        with torch.no_grad():
+            sys.exit(fleet_worker(int(sys.argv[2]), sys.argv[3],
+                                  int(sys.argv[4])))
     sys.exit(main())

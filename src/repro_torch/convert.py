@@ -21,7 +21,7 @@ from repro_torch.utils.tree import tree_map
 
 __all__ = ["tensor_from_numpy", "xc_params_from_numpy",
            "lstm_params_from_numpy", "transformer_params_from_numpy",
-           "lss_index_from_numpy",
+           "lss_index_from_numpy", "lss_index_stack_from_numpy",
            "adamw_state_from_numpy", "train_state_from_numpy"]
 
 # JAX's XC parameter names -> the port's (the rest are the same)
@@ -99,6 +99,25 @@ def lss_index_from_numpy(theta, table_ids, n_dropped, w_bucketed, w_scale,
         tensor_from_numpy(theta, dev), tables,
         None if w_bucketed is None else tensor_from_numpy(w_bucketed, dev),
         None if w_scale is None else tensor_from_numpy(w_scale, dev))
+
+
+def lss_index_stack_from_numpy(theta, table_ids, n_dropped, w_bucketed,
+                               w_scale, k_bits: int, n_tables: int,
+                               capacity: int,
+                               device: str | torch.device | None = None
+                               ) -> list[LSSIndex]:
+    """The port's per-shard indexes (``serve.heads.shard_index``'s list)
+    from the fields of a stacked JAX ``shard_index`` result: every leaf
+    carries a leading ``[n_shards]`` axis (``w_bucketed`` and ``w_scale``
+    may be None)."""
+    def shard(a, i):
+        return None if a is None else np.asarray(a)[i]
+
+    return [lss_index_from_numpy(shard(theta, i), shard(table_ids, i),
+                                 shard(n_dropped, i), shard(w_bucketed, i),
+                                 shard(w_scale, i), k_bits, n_tables,
+                                 capacity, device=device)
+            for i in range(np.shape(table_ids)[0])]
 
 
 def adamw_state_from_numpy(step, mu, nu,

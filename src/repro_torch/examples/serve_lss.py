@@ -1,6 +1,6 @@
 """Serving example (counterpart of the JAX package's
-``examples/serve_lss.py``, all but its vocab-sharded path): the unified
-engine end to end on both request kinds.
+``examples/serve_lss.py``): the unified engine end to end on both request
+kinds.
 
 1. Score path — an Engine over an XC model: requests arrive one by one
    (``submit``), the continuous micro-batcher coalesces them into
@@ -18,10 +18,12 @@ engine end to end on both request kinds.
 4. Async path — an Engine behind an ``AsyncRuntime``: open-loop Poisson
    traffic with per-request futures, then a burst segment, and an
    exact-equality check against the synchronous ``flush`` path.
+5. Sharded path — ``head="lss-sharded"`` on this process's serving mesh,
+   what one rank of a fleet builds (only its own shards), and the
+   launcher recipe that runs a fleet.
 
 On the card each (head, bucket) step and each fused decode step is a
-captured CUDA graph; on the CPU they run eagerly.  The vocab-sharded
-path of the JAX example comes with the multi-GPU slice.
+captured CUDA graph; on the CPU they run eagerly.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lss [--device cpu]
 """
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.reduced import reduced_model_cfg
+from repro_torch.core import simhash
 from repro_torch.core.lss import LSSConfig
 from repro_torch.data.pipeline import ShardedBatchIterator
 from repro_torch.data.synthetic import lm_dataset, xc_dataset
@@ -42,12 +45,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models import xc
 from repro_torch.serve import AsyncRuntime, Engine, LMDecoder
+from repro_torch.serve.heads import shard_index
 from repro_torch.serve.runtime import (submit_decode_open_loop,
                                        submit_open_loop)
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 __all__ = ["main", "score_path", "decode_path", "streaming_decode_path",
-           "async_path"]
+           "async_path", "sharded_multihost_path"]
 
 
 def score_path(dev: torch.device) -> dict:
@@ -188,6 +192,55 @@ def async_path(dev: torch.device) -> dict:
     return {**s._asdict(), "bit_identical": exact}
 
 
+def sharded_multihost_path(dev: torch.device) -> dict:
+    print("== vocab-sharded path: head='lss-sharded' + fleet recipe ==")
+    m, d = 4096, 32
+    w = torch.randn(m, d, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    cfg = LSSConfig(k_bits=5, n_tables=2)
+    eng = Engine(None, w, None, cfg, top_k=5, head="lss-sharded",
+                 buckets=(16,))
+    eng.fit_random(torch.Generator(dev).manual_seed(1))
+    q = np.random.default_rng(3).standard_normal((16, d)).astype(np.float32)
+    out, out2 = eng.rank(q), eng.rank(q)
+    exact = (torch.equal(out.ids, out2.ids)
+             and torch.equal(out.logits, out2.logits))
+    mesh = eng._get_mesh()
+    print(f"  lss-sharded over {mesh.n_shards} shard(s) on "
+          f"{mesh.world} rank(s): top-{out.ids.shape[1]} of {m}, "
+          f"deterministic={exact}")
+
+    # What each FLEET member would build — only its own shards.  Here:
+    # process 1 of a 2-process fleet, 2 shards a process, so shards [2, 4)
+    # of 4.  No process ever holds the full [m, d] head in its index.
+    w_aug = simhash.augment_neurons(w, None)
+    theta = simhash.init_hyperplanes(torch.Generator(dev).manual_seed(1),
+                                     d + 1, cfg.k_bits, cfg.n_tables,
+                                     device=dev)
+    lo, hi = 2, 4
+    m_local = -(-m // 4)
+    rows = (lo * m_local, min(hi * m_local, m))
+    stack, _, _ = shard_index(w_aug[rows[0]:rows[1]], theta, cfg, 4,
+                              shard_range=(lo, hi), m_total=m)
+    print(f"  process 1/2 builds shards [{lo}, {hi}): {len(stack)} local "
+          f"shard(s) over rows [{rows[0]}, {rows[1]}) — never the full "
+          f"[{m}, {d}] weight")
+
+    # The same Engine code runs a real torch.distributed fleet (gloo on
+    # the CPU or where ranks share a card, NCCL across cards) — process 0
+    # owns admission/results, the rest mirror via follower_loop:
+    print("  scale out (one line per process):")
+    for pid in range(2):
+        print("    python -m repro_torch.launch.serve --arch qwen2-0.5b "
+              "--reduced --head lss-sharded \\\n"
+              "        --coordinator HOST0:1234 --num-processes 2 "
+              f"--process-id {pid}")
+    print("  (exact fleet-vs-one-process parity: "
+          "tests/test_torch_multihost.py)")
+    return {"n_shards": mesh.n_shards, "deterministic": exact,
+            "local_shards": len(stack)}
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -202,6 +255,7 @@ def main(argv: list[str] | None = None) -> dict:
         dec, toks, out["decode"] = decode_path(dev, steps)
         out["streaming"] = streaming_decode_path(dec, toks)
         out["async"] = async_path(dev)
+        out["sharded"] = sharded_multihost_path(dev)
         return out
 
 

@@ -1,5 +1,6 @@
 """Command-line launchers (counterpart of ``repro.launch``): ``serve``
 (train an LM briefly, fit the LSS head, serve it, optionally with online
-index refresh) and ``train`` (train an LM with checkpoints and
-auto-resume).  Single device: the multi-process flags of the JAX
-launchers come with ROADMAP Queue 1 item 7."""
+index refresh, on one process or a fleet: ``--head lss-sharded
+--coordinator --num-processes --process-id``) and ``train`` (train an LM
+with checkpoints and auto-resume on one device; its ``--devices`` and
+``--mesh`` come with ROADMAP Queue 1 item 7b)."""

@@ -25,23 +25,32 @@ the end.
 The model and kernels run on ``--device`` (default ``cuda``; ``cpu``
 runs the kernels' plain versions).  ``--impl`` names the kernel
 implementation that device runs (``cuda`` on the card, ``ref`` on the
-CPU) and refuses the other.  The vocab-sharded head and multi-process
-serving (``--head lss-sharded``, ``--coordinator``, ``--num-processes``,
-``--process-id``) come with ROADMAP Queue 1 item 7: those flags exit
-before any work.
+CPU) and refuses the other.
+
+Multi-process serving: run one launcher per process with the same flags
+and ``--coordinator HOST:PORT --num-processes N --process-id I`` (or
+the ``REPRO_DIST_COORDINATOR``-family variables).  Every process trains
+and fits the same model from the same seeds; process 0 serves (and
+refreshes the index), the others mirror its opcodes in
+``serve.multihost.follower_loop``, each holding its own vocab shards of
+the ``lss-sharded`` head.  The ``multihost:`` line names the backend the
+fleet chose (NCCL where every rank has a device of its own, gloo where
+ranks share one or on the CPU).  ``--mode decode`` is refused on a fleet
+before the process group starts.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \\
-        --batch 16 --steps 32 [--head full|lss] \\
+        --batch 16 --steps 32 [--head full|lss|lss-sharded] \\
         [--runtime async --qps 500 --deadline-ms 50] \\
         [--mode decode --streams 8 --sessions 32 --qps 0] \\
         [--metrics-port 9100 --audit-rate 0.25 --hold-metrics 30] \\
-        [--refresh-interval 30] [--device cpu]
+        [--refresh-interval 30] [--device cpu] \\
+        [--coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0]
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
+import os
 import time
 
 import numpy as np
@@ -53,26 +62,29 @@ from repro_torch.core.lss import LSSConfig
 from repro_torch.data.pipeline import ShardedBatchIterator
 from repro_torch.data.synthetic import lm_dataset
 from repro_torch.device import resolve_device
+from repro_torch.distributed import (DIST_COORDINATOR_ENV,
+                                     DIST_NUM_PROCESSES_ENV,
+                                     shutdown_distributed)
 from repro_torch.kernels import registry
 from repro_torch.kernels.lss_topk.dedup import DEDUP_CHOICES
 from repro_torch.kernels.lss_topk.slabs import SLAB_DTYPE_CHOICES
 from repro_torch.models import transformer as T
 from repro_torch.obs.audit import RecallAuditor
+from repro_torch.obs.export import set_global_labels
 from repro_torch.serve import AsyncRuntime, LMDecoder
+from repro_torch.serve.multihost import (follower_loop, init_multihost,
+                                         leader_generate, stop_followers)
 from repro_torch.serve.refresh import IndexRefresher, RefreshConfig
 from repro_torch.serve.runtime import (submit_decode_open_loop,
                                        submit_open_loop)
 from repro_torch.train.trainer import TrainConfig, Trainer
 
-__all__ = ["main", "serve_decode", "serve_async", "LSS_CONFIG",
-           "MULTI_GPU"]
+__all__ = ["main", "serve_decode", "serve_async", "LSS_CONFIG"]
 
 #: the launcher's own LSS fit (the JAX launcher's), not the arch's: on
 #: qwen2-0.5b's 151,936-wide head, 64 buckets of P >= 2,374 neurons
 LSS_CONFIG = LSSConfig(k_bits=6, n_tables=1, iul_epochs=4,
                        iul_inner_steps=8, iul_lr=0.02)
-MULTI_GPU = ("the vocab-sharded head and multi-process serving come with "
-             "the port's multi-GPU slice (ROADMAP Queue 1 item 7)")
 
 
 def kernel_launches() -> dict[str, int]:
@@ -154,11 +166,18 @@ def _parser() -> argparse.ArgumentParser:
                          "more than this below the pre-swap baseline "
                          "($REPRO_REFRESH_ROLLBACK_DELTA)")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-process serving: not ported yet")
+                    help="multi-process serving: the TCPStore host:port "
+                         "(default: $REPRO_DIST_COORDINATOR); run one "
+                         "launcher per process with the same flags, "
+                         "distinct --process-id; --mode decode is not "
+                         "supported on a fleet")
     ap.add_argument("--num-processes", type=int, default=None,
-                    help="multi-process serving: not ported yet")
+                    help="multi-process serving: fleet size (default: "
+                         "$REPRO_DIST_NUM_PROCESSES; <= 1 = one process)")
     ap.add_argument("--process-id", type=int, default=None,
-                    help="multi-process serving: not ported yet")
+                    help="multi-process serving: this process's rank "
+                         "(default: $REPRO_DIST_PROCESS_ID; 0 owns "
+                         "admission, others mirror in follower_loop)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap
@@ -178,14 +197,25 @@ def _refresher(dec: LMDecoder, args) -> IndexRefresher:
 def main(argv: list[str] | None = None) -> dict:
     """Run the launcher; returns what it served (``mode``, the mode's
     counts and stats, ``compile_counts``, and ``refresh``: the
-    refresher's counts and the epoch served at the end, or None)."""
+    refresher's counts and the epoch served at the end, or None; a
+    follower's ``mode`` is ``follower`` with its op count)."""
     args = _parser().parse_args(argv)
-    if (args.head == "lss-sharded" or args.coordinator is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        sys.exit(f"serve: {MULTI_GPU}; serve on one device with "
-                 f"--head full or --head lss")
     head = "full" if args.no_lss else args.head
+    n_proc = (args.num_processes if args.num_processes is not None
+              else int(os.environ.get(DIST_NUM_PROCESSES_ENV, "1")))
+    coord = args.coordinator or os.environ.get(DIST_COORDINATOR_ENV)
+    if args.mode == "decode" and n_proc > 1 and coord:
+        # streaming decode sessions are not routed through the OP_DECODE
+        # opcode channel: the leader's fused decode steps end in fleet
+        # collectives the followers would never enter.  Checked BEFORE
+        # the process group starts (which waits for the whole fleet) from
+        # the same flag/env defaults init_multihost resolves, so every
+        # process fails fast instead of hanging.
+        raise SystemExit(
+            "serve: --mode decode is not supported with multi-process "
+            "serving (--coordinator/--num-processes): use --mode generate "
+            "for blocking fleet decode, or --runtime async for open-loop "
+            "scoring")
     dev = resolve_device(args.device)
     registry.resolve_impl("lss_topk", args.impl, dev)   # refuses a misfit
 
@@ -194,6 +224,17 @@ def main(argv: list[str] | None = None) -> dict:
         from repro_torch.obs.export import MetricsServer
         server = MetricsServer(port=args.metrics_port)
         print(f"metrics: {server.url}")
+
+    ctx = init_multihost(args.coordinator, args.num_processes,
+                         args.process_id, device=dev)
+    if ctx is not None:
+        dev = ctx.mesh.device
+        set_global_labels(process=str(ctx.process_id))
+        print(f"multihost: process {ctx.process_id}/{ctx.n_processes} "
+              f"({'leader' if ctx.is_leader else 'follower'}), "
+              f"{ctx.n_shards} vocab shards, {ctx.mesh.n_hosts} hosts x "
+              f"{ctx.mesh.ranks_per_host}, backend {ctx.mesh.backend} on "
+              f"{dev}", flush=True)
 
     spec = get_config(args.arch)
     cfg = reduced_model_cfg(args.arch) if args.reduced else spec.model_cfg
@@ -222,7 +263,7 @@ def main(argv: list[str] | None = None) -> dict:
             # width covers the warm call's 2-step floor.
             n_slots = args.streams if args.mode == "decode" else args.batch
             dec = LMDecoder(state.params, cfg, lss_cfg, max_streams=n_slots,
-                            max_len=16 + max(args.steps, 2))
+                            max_len=16 + max(args.steps, 2), spmd=ctx)
             if args.audit_rate is not None:
                 eng = dec.engine
                 if eng.auditor is not None:
@@ -236,12 +277,27 @@ def main(argv: list[str] | None = None) -> dict:
                       f"P={t.capacity} C={t.n_tables * t.capacity} of "
                       f"{cfg.vocab} neurons")
             prompt = toks[500:500 + args.batch, :16]
-            if args.refresh_interval is not None and head != "full":
+            if (args.refresh_interval is not None and head != "full"
+                    and (ctx is None or ctx.is_leader)):
                 refresher = _refresher(dec, args)
-            if args.mode == "decode":
+            if ctx is not None and not ctx.is_leader:
+                # followers mirrored the (deterministic) train + fit
+                # above; now replay the leader's opcodes until it stops us
+                n_ops = follower_loop(dec.engine, ctx, decoder=dec)
+                print(f"follower {ctx.process_id}: {n_ops} ops served")
+                out = {"mode": "follower", "ops": n_ops}
+            elif args.mode == "decode":
                 out = serve_decode(dec, toks, head, args)
             elif args.runtime == "async":
                 out = serve_async(dec, prompt, head, args)
+            elif ctx is not None:
+                tokens = leader_generate(ctx, dec, prompt, args.steps, head)
+                print(f"decoded {tuple(tokens.shape)} tokens on "
+                      f"{ctx.n_processes} processes; head={head}")
+                print(tokens[:2])
+                print(f"engine compiles (head, bucket): "
+                      f"{dec.engine.compile_counts}")
+                out = {"mode": "generate", "tokens": tokens.numpy()}
             else:
                 tokens = dec.generate(prompt, steps=args.steps, head=head)
                 print(f"decoded {tuple(tokens.shape)} tokens; head={head}")
@@ -255,8 +311,9 @@ def main(argv: list[str] | None = None) -> dict:
                 out["index"] = {"K": t.k_bits, "L": t.n_tables,
                                 "P": t.capacity}
     finally:
-        # the exporter teardown gets its own finally: a wedged close or
-        # an interrupted hold must still release the /metrics port
+        # the exporter teardown gets its own finally: a wedged close, a
+        # follower-stop failure or an interrupted hold must still release
+        # the /metrics port
         try:
             if refresher is not None:
                 refresher.close()
@@ -271,6 +328,10 @@ def main(argv: list[str] | None = None) -> dict:
                       f"epoch={dec.engine.index_epoch}"
                       + (f" last_error={refresher.last_error}"
                          if refresher.last_error else ""))
+            if ctx is not None:
+                if ctx.is_leader:
+                    stop_followers(ctx)
+                shutdown_distributed()
             if args.hold_metrics > 0:
                 print(f"holding /metrics for {args.hold_metrics}s",
                       flush=True)

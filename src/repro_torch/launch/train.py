@@ -8,8 +8,8 @@ checkpoints every 50 steps and at the end, and auto-resumes from the
 newest valid checkpoint in ``--ckpt-dir``.  A rerun on a finished
 directory resumes at its last step and says so (it trains nothing).
 ``--devices`` and ``--mesh`` (data x model sharding in the JAX launcher)
-come with the port's multi-GPU slice, ROADMAP Queue 1 item 7: they exit
-before any work.
+come with the training half of multi-GPU sharding, ROADMAP Queue 1 item
+7b: they exit before any work.
 """
 
 from __future__ import annotations
@@ -52,8 +52,8 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
     if args.devices or args.mesh:
         sys.exit("train: --devices and --mesh (sharded training) come with "
-                 "the port's multi-GPU slice (ROADMAP Queue 1 item 7); "
-                 "train on one device without them")
+                 "the training half of multi-GPU sharding (ROADMAP Queue 1 "
+                 "item 7b); train on one device without them")
 
     spec = get_config(args.arch)
     if spec.family != "lm":

@@ -26,7 +26,7 @@ graph over the pool's own slabs.
 
 The MoE styles come with the rest of the model zoo (ROADMAP Queue 1 item
 8); ``param_specs``, ``cache_specs`` and the sharding constraints with
-multi-GPU sharding (item 7).
+the training half of multi-GPU sharding (item 7b).
 """
 
 from __future__ import annotations

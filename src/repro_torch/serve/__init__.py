@@ -4,7 +4,8 @@ runtime.
 
   * ``engine``  — :class:`Engine` (submit/flush/metrics, ``decode_logits``),
     the legacy ``WOLServer`` facade and :class:`LMDecoder`.
-  * ``heads``   — the full | lss head protocol.
+  * ``heads``   — the full | lss | lss-sharded head protocol and
+    ``shard_index``.
   * ``batcher`` — bucketed continuous micro-batching (pure shape logic).
   * ``step``    — one (head, bucket) step or fused decode step: a captured
     CUDA graph on the card, an eager call on the CPU.
@@ -13,9 +14,8 @@ runtime.
   * ``runtime`` — :class:`AsyncRuntime`: thread-safe admission queue with
     per-request futures, deadline/queue-depth load shedding, and a
     dispatcher that overlaps host-side padding with device execution.
-
-The vocab-sharded heads and multi-process serving come with later
-slices of the port.
+  * ``multihost`` — multi-process serving: the leader's opcode channel
+    over the fleet's store, ``follower_loop``, the guarded fleet swap.
 """
 
 from repro_torch.serve.batcher import DEFAULT_BUCKETS, Chunk, MicroBatcher
@@ -25,7 +25,8 @@ from repro_torch.serve.decode import (FINISH_REASONS, DecodeScheduler,
 from repro_torch.serve.engine import (Engine, LMDecoder, RankResult,
                                       ServeMetrics, WOLServer)
 from repro_torch.serve.heads import (HEAD_KINDS, HeadOutput, make_full_head,
-                                     make_lss_head)
+                                     make_lss_head, make_multihost_lss_head,
+                                     make_sharded_lss_head, shard_index)
 from repro_torch.serve.runtime import (AdmissionQueue, AsyncRuntime,
                                        DeadlineExceededError, QueueFullError,
                                        RankFuture, RuntimeClosedError,
@@ -37,6 +38,7 @@ __all__ = [
     "DEFAULT_BUCKETS", "Chunk", "MicroBatcher",
     "Engine", "RankResult", "ServeMetrics", "WOLServer", "LMDecoder",
     "HEAD_KINDS", "HeadOutput", "make_full_head", "make_lss_head",
+    "make_sharded_lss_head", "make_multihost_lss_head", "shard_index",
     "AsyncRuntime", "RuntimeStats", "RankFuture", "AdmissionQueue",
     "ShedError", "QueueFullError", "DeadlineExceededError",
     "RuntimeClosedError", "submit_open_loop", "submit_decode_open_loop",

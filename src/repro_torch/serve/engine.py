@@ -4,9 +4,10 @@
 One :class:`Engine` owns:
 
   * the frozen model body (``embed_fn``) and WOL parameters ``w, b``,
-  * a fitted :class:`LSSIndex`, held in an index epoch,
-  * a pluggable head per request — ``full`` | ``lss`` — see
-    ``serve.heads``,
+  * a fitted :class:`LSSIndex`, held in an index epoch (plus its
+    vocab-sharded form, built lazily),
+  * a pluggable head per request — ``full`` | ``lss`` | ``lss-sharded``
+    — see ``serve.heads``,
   * a continuous micro-batcher that coalesces submitted requests into
     fixed bucketed batch shapes (``serve.batcher``) so arrival patterns
     never trigger a new build: exactly one step per (head, bucket) pair,
@@ -38,14 +39,22 @@ another thread's capture.  Everything runs on the current stream of the
 calling thread: a refit on the default stream queues in order with the
 serving replays there, so the new index's tensors need no hand-over.
 
+The vocab-sharded head runs over a ``distributed.ServingMesh``: its
+step's graph ends at this rank's shard-local winners, and the gather,
+the global top-k and the sample-size sum run after the replay
+(``serve.step``'s ``post``).  ``spmd`` (a
+``serve.multihost.MultihostContext``) serves it from a fleet of
+processes: the leader's steps ship their batch to the followers first
+(``multihost.make_leader_step``), followers replay the leader's opcodes
+in ``multihost.follower_loop``.
+
 ``WOLServer`` remains as a thin compatibility wrapper.  Requests are
-pytrees (``{"x": ids}``) of numpy arrays or tensors, as in JAX.  Still
-to come: the vocab-sharded and multi-process heads (ROADMAP Queue 1
-item 7).
+pytrees (``{"x": ids}``) of numpy arrays or tensors, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import time
@@ -59,10 +68,12 @@ from repro_torch.core import simhash
 from repro_torch.core.iul import fit_lss
 from repro_torch.core.lss import LSSConfig, LSSIndex, build_index
 from repro_torch.device import HostOutput
+from repro_torch.distributed import make_serving_mesh
 from repro_torch.obs.audit import RecallAuditor
 from repro_torch.serve.batcher import DEFAULT_BUCKETS, MicroBatcher
 from repro_torch.serve.heads import (HEAD_KINDS, HeadOutput, make_full_head,
-                                     make_lss_head)
+                                     make_lss_head, make_multihost_lss_head,
+                                     make_sharded_lss_head, shard_index)
 from repro_torch.serve.step import Step, release_graphs
 from repro_torch.testing import faults
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -109,12 +120,13 @@ class _IndexEpoch:
     sessions that prefilled under them are still draining (``pins``) and
     are dropped at unpin or at the next swap once unpinned."""
 
-    __slots__ = ("epoch", "index", "heads", "steps", "pins")
+    __slots__ = ("epoch", "index", "heads", "sharded", "steps", "pins")
 
     def __init__(self, epoch: int, index: LSSIndex):
         self.epoch = epoch
         self.index = index
         self.heads: dict[str, Callable] = {}      # lss kinds only
+        self.sharded = None       # (index_stack, w_stack, m_local)
         self.steps: dict[tuple[str, Any], Step] = {}
         self.pins = 0             # decode generations holding this epoch
 
@@ -160,6 +172,22 @@ class Engine:
     WOL parameters; the engine runs on their device, and the kernel
     registry picks each op's implementation by that device.
 
+    ``mesh`` (a ``distributed.ServingMesh``; default: the fleet's, from
+    ``distributed.make_serving_mesh``, or one process holding one shard)
+    lays out the ``lss-sharded`` head.  ``spmd`` (a
+    ``serve.multihost.MultihostContext``) runs that head over the
+    multi-process (host, model) mesh: this rank builds the head's shards
+    from only its own rows of W, and — on the leader — every step is
+    wrapped to ship its opcode and batch first, so followers sitting in
+    ``multihost.follower_loop`` enter the same collectives.  Admission
+    (``submit``/``rank``/the AsyncRuntime) happens on the leader only;
+    the wrapped seam is ``_step``, which both the sync paths and the
+    runtime dispatcher fetch from.  As in the JAX engine, every rank
+    still holds the whole W and bias-augmented W (the ``full`` head, the
+    fits and the refresher read them) and each epoch's whole index (a
+    follower rebuilds it at every swap) beside its shards, so a rank's
+    memory does not shrink with the fleet.
+
     Thread safety: every mutation of engine state — the pending request
     queue, finished results, the metrics window, and the step table —
     happens under ``self.lock`` (an RLock), so one Engine can be shared
@@ -173,14 +201,17 @@ class Engine:
                  b: torch.Tensor | None = None,
                  lss_cfg: LSSConfig = LSSConfig(), *,
                  top_k: int = 5, head: str = "lss",
-                 buckets=DEFAULT_BUCKETS,
-                 audit_rate: float | None = None):
-        if head == "lss-sharded":
-            raise ValueError(
-                "head 'lss-sharded' (the vocab-sharded index) comes with "
-                "the port's multi-GPU sharding slice; use 'full' or 'lss'")
+                 buckets=DEFAULT_BUCKETS, mesh=None,
+                 audit_rate: float | None = None, spmd=None):
         if head not in HEAD_KINDS:
             raise ValueError(f"head must be one of {HEAD_KINDS}, got {head}")
+        if spmd is not None and embed_fn is not None:
+            # fail here, not inside the hot step: the opcode channel ships
+            # raw [B, d] float32 embedding batches
+            raise ValueError(
+                "multihost serving (spmd=...) requires embed_fn=None: "
+                "requests must already be [B, d] embeddings; run the "
+                "model body before submission")
         self.embed_fn = embed_fn
         self.w = w.detach().float()
         self.device = self.w.device
@@ -190,6 +221,8 @@ class Engine:
         self.top_k = top_k
         self.default_head = head
         self.batcher = MicroBatcher(buckets)
+        self.mesh = mesh
+        self.spmd = spmd
         self._w_aug_cache: torch.Tensor | None = None
         # epoch id -> _IndexEpoch; index_epoch names the SERVING one
         self._epochs: dict[int, _IndexEpoch] = {}
@@ -304,9 +337,11 @@ class Engine:
         the serving path: a build holds the step's own lock, not
         ``self.lock``.  Decode steps are not warmed here — a scheduler
         generation builds its fused step when it first dispatches under
-        the new epoch.  No-op on ``embed_fn`` engines (request shapes are
+        the new epoch.  No-op on multihost engines (a leader-side dry run
+        would ship opcodes; the fleet warms in lockstep through its first
+        post-swap chunks) and on ``embed_fn`` engines (request shapes are
         not fabricable here)."""
-        if self.embed_fn is not None:
+        if self.spmd is not None or self.embed_fn is not None:
             return
         if shapes is None:
             cur = self._epochs.get(self.index_epoch)
@@ -323,8 +358,9 @@ class Engine:
         chunks: a chunk that fetched its step before the flip runs the
         old generation to completion, every fetch after runs the new.
         Every other unpinned epoch is dropped, and its steps' graphs
-        released outside the lock."""
-        with self.lock:
+        released outside the lock.  Lock order channel -> engine, as
+        ``submit``/``flush``."""
+        with self._channel_lock(), self.lock:
             st = self._epoch_state(epoch)       # raises if dropped
             faults.fire(faults.ENGINE_SWAP, epoch=epoch)
             old = self.index_epoch
@@ -339,18 +375,28 @@ class Engine:
 
     def swap_index(self, index: LSSIndex, *, warm: bool = True) -> int:
         """Online refresh entry: register ``index`` as a new epoch, warm
-        its score steps off the serving path, then flip.  Returns the new
+        its score steps off the serving path, then flip.  On a multihost
+        leader the flip rides an ``OP_SWAP_INDEX`` message so followers
+        rebuild and flip in lockstep; followers swap only through that
+        channel (``follower_loop``), never directly.  Returns the new
         epoch id."""
+        if self.spmd is not None:
+            if not self.spmd.is_leader:
+                raise RuntimeError(
+                    "followers swap via the OP_SWAP_INDEX message in "
+                    "follower_loop, not swap_index()")
+            from repro_torch.serve.multihost import leader_swap_index
+            return leader_swap_index(self.spmd, self, index)
         e = self.prepare_epoch(index)
         if warm:
             self.warm_epoch(e)
         return self._swap_prepared(e)
 
     def swap_from_theta(self, theta: torch.Tensor) -> int:
-        """Rebuild the index from hyperplanes against this engine's own
-        ``_w_aug`` and flip (the multihost follower's swap in the JAX
-        package).  ``build_index`` is value-deterministic, so the same θ
-        gives a bit-identical index without shipping buckets."""
+        """Follower-side swap: rebuild the index from the leader's
+        hyperplanes against this engine's own ``_w_aug`` and flip.
+        ``build_index`` is value-deterministic, so the same θ gives a
+        bit-identical index without shipping buckets."""
         theta = torch.as_tensor(theta, dtype=torch.float32,
                                 device=self.device)
         index = build_index(self._w_aug, theta, self.lss_cfg)
@@ -393,6 +439,13 @@ class Engine:
         release_graphs()
 
     # ------------------------------------------------------ head lookup --
+    def _get_mesh(self):
+        if self.spmd is not None:
+            return self.spmd.mesh
+        if self.mesh is None:
+            self.mesh = make_serving_mesh()
+        return self.mesh
+
     def _head(self, kind: str, st: _IndexEpoch | None = None) -> Callable:
         if kind not in HEAD_KINDS:
             raise ValueError(f"unknown head {kind!r}")
@@ -402,11 +455,39 @@ class Engine:
                                                  self.top_k)
             return self._full_head
         st = st if st is not None else self._epoch_state()
-        if kind not in st.heads:
+        if kind in st.heads:
+            return st.heads[kind]
+        if kind == "lss":
             w_aug = None if st.index.w_bucketed is not None \
                 else self._w_aug
-            st.heads[kind] = make_lss_head(st.index, w_aug, self.top_k)
-        return st.heads[kind]
+            head = make_lss_head(st.index, w_aug, self.top_k)
+        else:
+            mesh = self._get_mesh()
+            if mesh.backend == "nccl" and mesh.device != self.device:
+                raise ValueError(f"the engine's weights are on "
+                                 f"{self.device}, its NCCL rank drives "
+                                 f"{mesh.device}")
+            stack, w_stack, m_local = self._shards(st, mesh)
+            make = (make_multihost_lss_head if self.spmd is not None
+                    else make_sharded_lss_head)
+            head = make(stack, w_stack, mesh, m_local, self.top_k)
+        st.heads[kind] = head
+        return head
+
+    def _shards(self, st: _IndexEpoch, mesh):
+        """The epoch's vocab shards that this rank holds, built once from
+        ONLY its ``row_range`` of W (the JAX package's single-process path
+        shards the whole ``_w_aug``; the shards are the same bits)."""
+        if st.sharded is None:
+            m = self.w.shape[0]
+            r0, r1 = mesh.row_range(m)
+            w_aug_local = simhash.augment_neurons(self.w[r0:r1],
+                                                  self.b[r0:r1])
+            st.sharded = shard_index(w_aug_local, st.index.theta,
+                                     self.lss_cfg, mesh.n_shards,
+                                     shard_range=mesh.shard_range(),
+                                     m_total=m)
+        return st.sharded
 
     # ------------------------------------------------------------ steps --
     def _step(self, kind: str, bucket: int,
@@ -429,11 +510,23 @@ class Engine:
                 head = self._head(kind, None if kind == "full"
                                   else self._epoch_state(epoch))
                 embed = self.embed_fn
+                # a split head's graph ends at the shard-local winners;
+                # its merge runs after the replay
+                local = getattr(head, "local", head)
 
                 def fn(x):
-                    return head(embed(x) if embed is not None else x)
+                    return local(embed(x) if embed is not None else x)
 
-                table[key] = Step(fn, self.device, self._counter(key))
+                post = getattr(head, "merge", None)
+                step = Step(fn, self.device, self._counter(key), post=post)
+                if self.spmd is not None and self.spmd.is_leader:
+                    # the SPMD seam: sync rank/flush AND the runtime
+                    # dispatcher all fetch from here, so wrapping the
+                    # leader's step makes every admission path ship its
+                    # batch to the follower_loop processes first
+                    from repro_torch.serve.multihost import make_leader_step
+                    step = make_leader_step(self.spmd, step, kind)
+                table[key] = step
             return table[key]
 
     def _counter(self, key) -> Callable[[], None]:
@@ -474,7 +567,9 @@ class Engine:
 
         On the card the step is a CUDA graph over the pool's own slabs,
         updated in place: the port's counterpart of the JAX step's
-        donation of the slabs on TPU.
+        donation of the slabs on TPU.  For a split head (``lss-sharded``)
+        the graph ends at the shard-local winners; the merge and the
+        ``tok`` write run after the replay, on the current stream.
         """
         key = (kind, tag)
         table = (self._steps if kind == "full"
@@ -486,16 +581,26 @@ class Engine:
             if key not in table:
                 head = self._head(kind, None if kind == "full"
                                   else self._epoch_state(epoch))
+                merge = getattr(head, "merge", None)
+                local = getattr(head, "local", head)
 
                 def fn(params, tok, k, v, *ops):
                     hidden, _, _ = body(params, tok, k, v, *ops)
-                    ho = head(hidden.float())
+                    out = local(hidden.float())
+                    if merge is None:
+                        tok.copy_(out.ids[:, 0].clamp(min=0))
+                    return hidden, out
+
+                def post(params, tok, k, v, out):
+                    hidden, part = out
+                    ho = merge(part)
                     tok.copy_(ho.ids[:, 0].clamp(min=0))
                     return hidden, ho
 
                 # (params, tok, k, v) bound; the warm-up's tokens undone
                 table[key] = Step(fn, self.device, self._counter(key),
-                                  n_bound=4, restore=(1,))
+                                  n_bound=4, restore=(1,),
+                                  post=None if merge is None else post)
             return table[key]
 
     # ------------------------------------------------------- score path --
@@ -532,11 +637,22 @@ class Engine:
         return out
 
     # --------------------------------------------------- request queue --
+    def _channel_lock(self):
+        """The multihost opcode-channel lock when this process is the
+        leader (a no-op context otherwise).  Entry points that hold
+        ``self.lock`` across a leader-wrapped step (submit/flush) take it
+        FIRST, so lock order is always channel -> engine — the same order
+        ``multihost.leader_generate`` (channel) -> decode-step build
+        (engine) uses.  Both locks are reentrant."""
+        if self.spmd is not None and self.spmd.is_leader:
+            return self.spmd.lock
+        return contextlib.nullcontext()
+
     def submit(self, x, labels=None) -> int:
         """Enqueue one example (leaves WITHOUT the batch dim).  Returns a
         request id; auto-flushes once a full max bucket is waiting."""
         x = tree_map(host_numpy, x)
-        with self.lock:
+        with self._channel_lock(), self.lock:
             rid = self._next_rid
             self._next_rid += 1
             self._queue.append(_Pending(rid, x, _as_label_row(labels),
@@ -550,7 +666,7 @@ class Engine:
         xb_np = tree_map(host_numpy, xb)         # one device->host copy
         n = tree_leaves(xb_np)[0].shape[0]
         lab = None if labels is None else host_numpy(labels)
-        with self.lock:                          # rids stay contiguous
+        with self._channel_lock(), self.lock:    # rids stay contiguous
             return [self.submit(tree_map(lambda leaf: leaf[i], xb_np),
                                 None if lab is None else lab[i])
                     for i in range(n)]
@@ -564,7 +680,7 @@ class Engine:
     def flush(self, head: str | None = None) -> list[RankResult]:
         """Drain the queue through bucketed steps; return all finished
         results (including auto-flushed ones) in submit order."""
-        with self.lock:
+        with self._channel_lock(), self.lock:
             while self._queue:
                 take = min(len(self._queue), self.batcher.max_bucket)
                 group = self._queue[:take]
@@ -717,15 +833,17 @@ class LMDecoder:
     so pin them when comparing runs.  ``max_len=None`` sizes the pool
     lazily from the first ``generate`` call (growing it later rebuilds).
     The engine runs on the parameters' device; the JAX package's
-    ``impl``, ``dedup``, ``slab_dtype`` and ``spmd`` arguments are the
-    device's choice, ``lss_cfg``'s, and the multi-GPU slice's here.
+    ``impl``, ``dedup`` and ``slab_dtype`` arguments are the device's
+    choice and ``lss_cfg``'s here.  ``spmd`` runs the engine on a
+    multihost fleet (see :class:`Engine`; decode on a fleet is blocking
+    ``generate`` mirrored on every process, ``multihost.leader_generate``).
     """
 
     def __init__(self, params: dict, cfg, lss_cfg: LSSConfig | None = None,
                  *, max_streams: int = 8, max_len: int | None = None,
                  kv_layout: str | None = None,
                  kv_page_tokens: int | None = None,
-                 kv_pages: int | None = None):
+                 kv_pages: int | None = None, spmd=None):
         from repro_torch.models import transformer as T
         self.T = T
         self.params = params
@@ -741,7 +859,8 @@ class LMDecoder:
         self.kv_pages = kv_pages
         self._scheds: dict[str, Any] = {}
         self.engine = Engine(None, self.head_weights().float(), None,
-                             lss_cfg or LSSConfig(), top_k=1, head="full")
+                             lss_cfg or LSSConfig(), top_k=1, head="full",
+                             spmd=spmd)
 
     @property
     def index(self):
@@ -815,9 +934,10 @@ class LMDecoder:
         """Greedy decode.  prompt [B, S] -> int32 tokens [B, steps] (on
         the CPU).
 
-        ``head`` is ``full`` or ``lss`` (None: the engine's default,
-        ``full``).  Rows run as sessions through the slot pool:
-        ``B > max_streams`` decodes in waves of ``max_streams``.  Safe while an AsyncRuntime serves the same
+        ``head`` is ``full``, ``lss`` or ``lss-sharded`` (None: the
+        engine's default, ``full``).  Rows run as sessions through the
+        slot pool: ``B > max_streams`` decodes in waves of
+        ``max_streams``.  Safe while an AsyncRuntime serves the same
         scheduler — ticks serialize, and this call returns once ITS
         streams finish, leaving other producers' sessions in flight."""
         kind = head or self.engine.default_head

@@ -91,9 +91,10 @@ class IndexRefresher:
     Args:
       engine: the serving Engine.  Must have been fitted through
         ``fit_from_queries`` (the refresher snapshots ``engine.calib``)
-        or be given ``calib=(q, labels)`` explicitly.  (The JAX
-        package's multihost leader check comes with the port's
-        multi-process slice, ROADMAP Queue 1 item 7.)
+        or be given ``calib=(q, labels)`` explicitly.  On a multihost
+        fleet, construct this on the LEADER only — ``swap_index`` ships
+        ``OP_SWAP_INDEX`` (``multihost.leader_swap_index``) so followers
+        flip in lockstep; a follower refuses to construct one.
       auditor: the live recall sensor probation watches.  ``None``
         disables the guard (swaps are trusted); a disabled auditor
         (``rate=0``) behaves like ``None`` because no rows ever arrive
@@ -122,6 +123,10 @@ class IndexRefresher:
         self.auditor = (getattr(engine, "auditor", None)
                         if auditor is _UNSET else auditor)
         self.cfg = cfg if cfg is not None else RefreshConfig.from_env()
+        spmd = getattr(engine, "spmd", None)
+        if spmd is not None and not spmd.is_leader:
+            raise RuntimeError("IndexRefresher runs on the multihost "
+                               "leader; followers swap via OP_SWAP_INDEX")
         if calib is None:
             calib = engine.calib
         if calib is None:

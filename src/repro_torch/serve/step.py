@@ -29,6 +29,14 @@ host round trip.  Its warm-up feeds its tokens back too, so ``tok`` is
 named in ``restore``: the step puts it back before capturing.  (The
 warm-up's KV writes are the values the replay writes again.)
 
+A step may also have a ``post``: ``post(*bound, out)`` runs eagerly
+after every call (after the replay and the clone, outside the step's
+lock) and its result is the step's.  The vocab-sharded head puts its
+merge there: a gloo collective cannot be captured at all, and an NCCL
+one captured would bind every rank to replay in the same order, so the
+graph ends at the shard-local winners and the gather, the global top-k
+and (for a decode step) the ``tok`` write run after it.
+
 Python bodies run only at capture.  A kernel wrapper's ``launches``
 counter therefore counts the calls that launched its kernel: the
 warm-up's and the one recorded into the graph.  A replay runs the
@@ -138,16 +146,20 @@ class Step:
     ``compile_counts``), under the step's own lock: it must take no lock
     that is held while a step is called.  A build that raises is retried
     by the next call, as a JAX trace that fails is.  ``build_s`` is the
-    host seconds of the last build (warm-up and capture on the card)."""
+    host seconds of the last build (warm-up and capture on the card).
+    ``post(*bound, out)``, if given, runs eagerly after each call and
+    gives the step's result."""
 
     def __init__(self, fn: Callable, device: torch.device,
                  on_build: Callable[[], None], *,
-                 n_bound: int = 0, restore: tuple[int, ...] = ()):
+                 n_bound: int = 0, restore: tuple[int, ...] = (),
+                 post: Callable | None = None):
         self.fn = fn
         self.device = device
         self._on_build = on_build
         self._n_bound = n_bound
         self._restore = restore
+        self._post = post
         self._lock = threading.Lock()
         self._built = False
         self.build_s: float | None = None
@@ -168,9 +180,16 @@ class Step:
         return self._graph is not None
 
     def __call__(self, *args):
-        """``fn`` on ``args``; returns its outputs as tensors on the
-        step's device."""
-        bound, inputs = args[:self._n_bound], args[self._n_bound:]
+        """``fn`` on ``args`` (then ``post``); returns its outputs as
+        tensors on the step's device."""
+        bound = args[:self._n_bound]
+        out = self._run(bound, args[self._n_bound:])
+        if self._post is None:
+            return out
+        with torch.no_grad():
+            return self._post(*bound, out)
+
+    def _run(self, bound, inputs):
         if self.device.type != "cuda":
             if not self._built:
                 with self._lock:

@@ -646,3 +646,69 @@ def test_lss_topk_at_the_decode_shape(cuda, bsz):
     assert_topk_ids_equal(got[1], want[1][:, :1], want[0][:, :1], 1e-4,
                           rows=rows, next_logit=want[0][:, 1],
                           what="top_ids")
+
+
+# ------------------------------------------------ vocab-sharded serving --
+
+@pytest.mark.parametrize("slab_dtype", ["fp32", "int8"])
+def test_lss_topk_on_padded_shards(cuda, slab_dtype):
+    """``shard_index`` of 4,099 rows into 4 shards: the last holds 1,024
+    real rows and one padded (masked) slot.  Each shard's kernel agrees
+    with its plain version, and no padded id is retrieved or returned."""
+    from repro_torch.serve.heads import shard_index
+    rng = np.random.default_rng(11)
+    m, n_shards, d = 4099, 4, 33
+    w_aug = augment_neurons(torch.from_numpy(
+        rng.normal(size=(m, d - 1)).astype(np.float32)).to(cuda))
+    theta = torch.from_numpy(
+        rng.normal(size=(d, 8)).astype(np.float32)).to(cuda)
+    q = augment_queries(torch.from_numpy(
+        rng.normal(size=(64, d - 1)).astype(np.float32)).to(cuda))
+    stack, _, m_local = shard_index(
+        w_aug, theta, LSSConfig(k_bits=8, n_tables=1, slab_dtype=slab_dtype),
+        n_shards)
+    assert m_local == 1025
+    rows = margin_rows(q, theta)
+    for s, idx in enumerate(stack):
+        t = idx.tables
+        n_valid = min(m - s * m_local, m_local)
+        got = lss_topk(q, theta, t.table_ids, idx.w_bucketed, top_k=5,
+                       w_scale=idx.w_scale)
+        want = lss_topk_ref(q, theta, t.table_ids, idx.w_bucketed, top_k=5,
+                            w_scale=idx.w_scale)
+        torch.cuda.synchronize()
+        assert_ints_equal(got[3], want[3], rows=rows, what="cand")
+        assert_ints_equal(got[2], want[2], rows=rows, what="sample")
+        assert_close(got[0], want[0], rtol=1e-4, atol=1e-4, rows=rows,
+                     what="top_logits")
+        assert_topk_ids_equal(got[1], want[1], want[0], 1e-4, rows=rows,
+                              what="top_ids")
+        assert int(got[3].max()) < n_valid and int(got[1].max()) < n_valid
+
+
+def test_world_one_sharded_step_is_captured(cuda, tmp_path):
+    """``Engine(head="lss-sharded")`` on a one-rank NCCL group: its step
+    is a CUDA graph ending at the shard's winners (the NCCL gather and
+    the merge run after the replay), and its results are the ``lss``
+    head's bits."""
+    import torch.distributed as dist
+    from repro_torch.distributed import init_distributed, shutdown_distributed
+    assert init_distributed(store=dist.FileStore(str(tmp_path / "s"), 1),
+                            num_processes=1, process_id=0)
+    try:
+        eng = _serving_engine(cuda)
+        mesh = eng._get_mesh()
+        assert mesh.backend == "nccl" and mesh.group is not None
+        x = torch.randn(8, 32, generator=torch.Generator(cuda).manual_seed(4),
+                        device=cuda)
+        sharded = eng._step("lss-sharded", 8)
+        before = lss_topk_cuda.launches
+        outs = [sharded(x) for _ in range(3)]
+        assert sharded.captured and lss_topk_cuda.launches - before == 2
+        want = eng._step("lss", 8)(x)
+        for out in outs:
+            for got, ref in zip(out[:3], want[:3]):
+                assert got.dtype == ref.dtype and torch.equal(got, ref)
+            assert out.cand_ids is None
+    finally:
+        shutdown_distributed()

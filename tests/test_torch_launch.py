@@ -3,8 +3,10 @@ JAX package's ``repro.launch.{serve,train}`` and ``repro.configs.
 {base,registry}``): each ported ``ArchSpec`` equals JAX's field for field
 (dtypes mapped), the unported ids raise, ``launch.serve`` runs every mode
 at the reduced size (generate with both heads, streaming decode and async
-scoring with online index refresh), the multi-GPU flags exit before any
-work, and ``launch.train`` trains and then resumes."""
+scoring with online index refresh), ``--mode decode`` on a fleet exits
+before any work (the fleets themselves run in test_torch_multihost.py),
+``launch.train``'s multi-GPU flags exit naming Queue 1 item 7b, and
+``launch.train`` trains and then resumes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -132,20 +134,30 @@ def test_serve_async_with_audit_metrics_and_refresh(capsys):
     assert "16/16 served" in text
 
 
-@pytest.mark.parametrize("flags", [["--head", "lss-sharded"],
-                                   ["--coordinator", "127.0.0.1:1234"],
-                                   ["--num-processes", "2"],
+FLEET = ["--coordinator", "127.0.0.1:1234", "--num-processes", "2"]
+
+
+@pytest.mark.parametrize("flags", [FLEET + ["--head", "lss-sharded"],
+                                   FLEET,
+                                   FLEET + ["--process-id", "1"],
                                    ["--process-id", "1"]])
 def test_serve_multi_gpu_flags_exit_before_any_work(flags, monkeypatch):
+    # streaming decode on a fleet is refused before the process group
+    # starts (the flags, or the REPRO_DIST_COORDINATOR-family variables for the last case)
     def no_work(*a, **k):
         raise AssertionError("the launcher started work")
 
+    if "--coordinator" not in flags:
+        monkeypatch.setenv("REPRO_DIST_COORDINATOR", "127.0.0.1:1234")
+        monkeypatch.setenv("REPRO_DIST_NUM_PROCESSES", "2")
     monkeypatch.setattr(serve, "lm_dataset", no_work)
     monkeypatch.setattr(serve, "resolve_device", no_work)
+    monkeypatch.setattr(serve, "init_multihost", no_work)
     with pytest.raises(SystemExit) as exc:
-        serve.main(SMALL + flags)
+        serve.main(SMALL + ["--mode", "decode"] + flags)
     assert exc.value.code not in (0, None)
-    assert "Queue 1 item 7" in str(exc.value.code)
+    assert "--mode decode is not supported with multi-process" in \
+        str(exc.value.code)
 
 
 def test_serve_impl_must_fit_the_device(monkeypatch):
@@ -178,4 +190,4 @@ def test_train_multi_gpu_flags_exit(flags, monkeypatch):
     with pytest.raises(SystemExit) as exc:
         train.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu"]
                    + flags)
-    assert "Queue 1 item 7" in str(exc.value.code)
+    assert "Queue 1 item 7b" in str(exc.value.code)

@@ -128,9 +128,15 @@ def test_failed_build_is_retried_and_counted():
 
 
 def test_lss_sharded_head_waits_for_its_slice():
-    with pytest.raises(ValueError, match="sharding slice"):
-        Engine(None, torch.zeros(8, 4), head="lss-sharded")
-    assert HEAD_KINDS == ("full", "lss")
+    # the slice has come: the head exists, an unknown one still raises,
+    # and a multihost engine refuses an embed_fn
+    assert HEAD_KINDS == ("full", "lss", "lss-sharded")
+    eng = Engine(None, torch.zeros(8, 4), head="lss-sharded")
+    assert eng.default_head == "lss-sharded"
+    with pytest.raises(ValueError, match="head must be one of"):
+        Engine(None, torch.zeros(8, 4), head="lss-sharded-2")
+    with pytest.raises(ValueError, match="embed_fn=None"):
+        Engine(lambda b: b, torch.zeros(8, 4), spmd=object())
 
 
 # ------------------------------------------------------------- parity --
@@ -351,6 +357,8 @@ def test_serve_example_runs_on_cpu(capsys):
     assert out["streaming"]["bit_identical"]
     assert out["streaming"]["n_decode_done"] == 12
     assert out["streaming"]["n_decode_tokens"] == 12 * 24
+    assert out["sharded"] == {"n_shards": 1, "deterministic": True,
+                              "local_shards": 2}
     printed = capsys.readouterr().out
     assert "bit-identical to synchronous flush: True" in printed
     assert "interleaved == blocking generate: True" in printed

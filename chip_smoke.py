@@ -113,7 +113,9 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import faulthandler
 import gc
+import io
 import json
 import os
 import re
@@ -127,6 +129,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -153,6 +156,8 @@ try:
     from repro_torch.data.pipeline import ShardedBatchIterator
     from repro_torch.data.synthetic import lm_dataset, xc_dataset
     from repro_torch.distributed import (ServingMesh, init_distributed,
+                                         make_serving_mesh,
+                                         make_training_mesh,
                                          shutdown_distributed)
     from repro_torch.examples import train_wol
     from repro_torch.kernels import _build, registry
@@ -188,7 +193,14 @@ try:
     from repro_torch.testing.parity import (assert_close, assert_ints_equal,
                                             assert_topk_ids_equal,
                                             margin_rows)
-    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.optim.compression import (compressed_psum,
+                                               init_error_state,
+                                               quantize_int8)
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           make_train_step, value_and_grad)
+    from repro_torch.utils.sharding import (P, full_tensor, named_sharding,
+                                            stages_gathers, to_local,
+                                            use_mesh)
     from repro_torch.utils.tree import tree_leaves
     from tools.check_metrics import parse_exposition
 except ImportError as e:
@@ -246,6 +258,15 @@ SHARD_COUNTS = (1, 2, 4)   # sharded_index: vocab shards of the trained WOL
 FLEET_QPS = 1000.0         # fleet, fleet_launch: the open loop's rate
 FLEET_TIMEOUT_S = 300      # fleet: the two processes, killed after this
 FLEET_LAUNCH_TIMEOUT_S = 600   # fleet_launch: one two-process launch
+SHARDED_STEPS = 60         # sharded_train: (1, 2) steps against one process
+SHARDED_QUERIES = 256      # sharded_train: rows each rank's shard serves
+DP_STEPS = 5               # sharded_train: (2, 1) steps
+# sharded_train: a loss of the (1, 2) and (2, 1) runs against the
+# one-process run's (sums over the vocab shards and the batch halves run
+# in other orders, and Adam carries their last bits from step to step)
+SHARDED_RTOL = 1e-4
+SHARDED_LAUNCH_STEPS = 24  # sharded_train: the launcher's 2x1 run resumes
+SHARDED_LAUNCH_BATCH = 8   # at step 20 and trains to this step
 # decode: the full head's top logit against an fp32 GEMM of the same
 # hidden states (both fp32 GEMMs; scaled like LOGIT_ATOL)
 DECODE_FULL_TOL = 1e-5
@@ -873,15 +894,17 @@ def phase_train_wol(dev, counters):
     require(hist[-1]["step"] == res["steps"] == 500, "train_wol: steps")
 
     # ms per step: host clock around synchronised steps of the trainer's
-    # step function on the trained state (results dropped)
+    # step on the trained state (results dropped: a step that does not
+    # donate, so the trained state stays as it is)
     data = res["data"]
     batch = next(ShardedBatchIterator({"x": data.x, "labels": data.labels},
                                       BATCH, device=dev))
+    step_fn = make_train_step(tr.loss_fn, tr.tc)
     step_ms = []
     for _ in range(STEP_ITERS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        tr.step_fn(res["state"], batch)
+        step_fn(res["state"], batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
     n_params = sum(t.numel() for t in tree_leaves(res["state"].params))
@@ -2065,6 +2088,369 @@ def phase_fleet(dev, smi, model, index, lss_cfg, data):
     return reports
 
 
+# ------------------------------------------------------- sharded train --
+
+def sharded_train_setup():
+    """``train_wol``'s full-width XC model, rows and TrainConfig (no
+    checkpoints), and the generator seed both runs draw the parameters
+    from."""
+    cfg = DELICIOUS.full._replace(max_in=32, max_labels=4)
+    data = xc_dataset(11, 6616, cfg.input_dim, cfg.output_dim, n_topics=128,
+                      max_in=cfg.max_in, max_labels=cfg.max_labels)
+    tc = TrainConfig(lr=5e-3, warmup_steps=30, total_steps=500,
+                     weight_decay=0.0, ckpt_every=10 ** 9)
+    return cfg, {"x": data.x, "labels": data.labels}, tc
+
+
+def state_bytes(state) -> int:
+    """This rank's bytes of a train state (its pieces of sharded leaves)."""
+    return sum(t.numel() * t.element_size()
+               for t in map(to_local, tree_leaves(state)))
+
+
+def timed_steps(step_fn, state, batch, mesh=None, iters=STEP_ITERS):
+    """Host ms of ``iters`` synchronised steps that do not donate (the
+    state stays as it is)."""
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with use_mesh(mesh):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t1) * 1e3)
+    return out
+
+
+def train_worker(rank: int, tmp: str, port: int) -> int:
+    """One rank of the ``sharded_train`` phase (``chip_smoke.py
+    --train-worker RANK DIR PORT``): two processes on the one card over
+    gloo.  (1) The full-width XC model on a (1, 2) mesh for
+    ``SHARDED_STEPS`` steps from the seeded parameters: losses, ms a
+    step, this rank's state bytes and peak memory, one step's
+    collectives; then this rank builds the index of ITS OWN trained WOL
+    rows (``shard_index`` with its shard range) on a seeded θ and serves
+    ``SHARDED_QUERIES`` rows through ``lss_topk`` and the serving merge;
+    rank 0 writes the gathered WOL and the queries for the one-process
+    oracle.  (2) The same model on (2, 1), ``DP_STEPS`` steps, then
+    ``compressed_psum`` of each rank's own gradient of its half batch
+    over the data group against the fp32 mean.  Prints one
+    ``SHARDED_TRAIN {...}`` line."""
+    faulthandler.enable()           # a crash in a collective names its line
+    d = Path(tmp)
+    require(init_distributed(f"127.0.0.1:{port}", 2, rank),
+            "sharded_train: no fleet")
+
+    def stage(name):
+        print(f"sharded_train rank {rank}: {name}", flush=True)
+
+    cfg, data, tc = sharded_train_setup()
+    lss_cfg = DELICIOUS.lss
+    counter = lss_topk_ops.lss_topk_cuda
+    report = {"rank": rank}
+    try:
+        tm = make_training_mesh((1, 2))
+        dev = tm.device
+        report.update(backend=tm.backend, device=str(dev))
+        require(tm.backend == "gloo" and stages_gathers(tm.mesh),
+                f"sharded_train rank {rank}: backend {tm.backend}")
+        loss = lambda p, b: xc.loss(p, b, cfg)   # noqa: E731
+        init = lambda g: xc.init_params(g, cfg, dev)   # noqa: E731
+
+        # 1. model-sharded: the WOL rows and the input table over model
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(loss, init, tc, mesh=tm.mesh,
+                     param_specs=xc.param_specs(cfg))
+        it = ShardedBatchIterator(data, BATCH, mesh=tm.mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = tr.fit(torch.Generator(dev).manual_seed(SEED + 20),
+                             it, SHARDED_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        batch = next(it)
+        step_fn = make_train_step(loss, tc)
+        # CollectiveLog imports DTensor's debug tools: only this worker
+        from repro_torch.utils.sharding import CollectiveLog
+        with use_mesh(tm.mesh), CollectiveLog() as log:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+        stage("(1, 2) trained")
+        report["model_sharded"] = {
+            "losses": [h["loss"] for h in hist], "fit_s": fit_s,
+            "ms_per_step": timed_steps(step_fn, state, batch, tm.mesh),
+            "state_bytes": state_bytes(state), "peak_allocated_mb": peak_mb,
+            "local_rows": {k: list(to_local(v).shape)
+                           for k, v in state.params.items()},
+            "collectives": log.summary(),
+            "collective_shapes": [[r["op"], r["output"]]
+                                  for r in log.records]}
+
+        # the served shard: this rank's trained rows only
+        m = cfg.output_dim
+        w_local = to_local(state.params["w_out"])
+        b_local = to_local(state.params["b_out"])
+        model = XCModel.from_params(state.params, cfg)
+        with use_mesh(tm.mesh):
+            q = to_local(model.embed(named_sharding(tm.mesh, P()).place(
+                torch.from_numpy(data["x"][:SHARDED_QUERIES]))))
+        stage("queries embedded")
+        w_full = full_tensor(state.params["w_out"])
+        b_full = full_tensor(state.params["b_out"])
+        stage("WOL gathered")
+        if rank == 0:
+            np.save(d / "w.npy", w_full.cpu().numpy())
+            np.save(d / "b.npy", b_full.cpu().numpy())
+            np.save(d / "q.npy", q.cpu().numpy())
+        del w_full, b_full, model
+        smesh = make_serving_mesh()
+        theta = init_hyperplanes(torch.Generator(dev).manual_seed(SEED + 21),
+                                 cfg.hidden + 1, lss_cfg.k_bits,
+                                 lss_cfg.n_tables, device=dev)
+        r0, r1 = smesh.row_range(m)
+        require(w_local.shape[0] == r1 - r0,
+                f"sharded_train rank {rank}: {w_local.shape[0]} trained "
+                f"rows, the serving shard holds [{r0}, {r1})")
+        local, _, m_local = shard_index(augment_neurons(w_local, b_local),
+                                        theta, lss_cfg, smesh.n_shards,
+                                        shard_range=smesh.shard_range(),
+                                        m_total=m)
+        stage("shard index built")
+        fwd = make_sharded_predict(smesh, m_local, TOP_K, with_aux=True)
+        torch.cuda.synchronize()
+        counter.launches = 0
+        out = fwd(q, local)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        np.savez(d / f"served_r{rank}.npz",
+                 **{k: t.cpu().numpy()
+                    for k, t in zip(("logits", "ids", "sample"), out)})
+        idx = local[0]
+        _, check, _ = compare_lss_topk(augment_queries(q), idx.theta,
+                                       idx.tables.table_ids,
+                                       idx.w_bucketed, idx.w_scale, TOP_K)
+        report["served"] = {"rows": [r0, r1], "m_local": m_local,
+                            "lss_topk_launches": launches,
+                            "kernel_check": check}
+        del state, tr, it, local, w_local, b_local
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. data-parallel: the whole model on each rank, the batch split
+        stage("served")
+        tm2 = make_training_mesh((2, 1))
+        tr2 = Trainer(loss, init, tc, mesh=tm2.mesh,
+                      param_specs=xc.param_specs(cfg))
+        it2 = ShardedBatchIterator(data, BATCH, mesh=tm2.mesh)
+        state2, hist2 = tr2.fit(torch.Generator(dev).manual_seed(SEED + 20),
+                                it2, DP_STEPS, log_every=1)
+        batch2 = next(it2)
+        report["data_parallel"] = {
+            "losses": [h["loss"] for h in hist2],
+            "ms_per_step": timed_steps(make_train_step(loss, tc), state2,
+                                       batch2, tm2.mesh, iters=3),
+            "state_bytes": state_bytes(state2)}
+        # compressed_psum of this rank's own gradient of its half batch
+        stage("(2, 1) trained")
+        params = {k: to_local(v) for k, v in state2.params.items()}
+        _, grads = value_and_grad(loss, params,
+                                  {k: to_local(v) for k, v in batch2.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, err = compressed_psum(grads, init_error_state(grads),
+                                   tm2.groups["data"])
+        torch.cuda.synchronize()
+        psum_s = time.perf_counter() - t0
+        leaves = {}
+        for k, g in grads.items():
+            mean = g.clone()
+            dist.all_reduce(mean, group=tm2.groups["data"])
+            mean /= 2
+            # int8 rounding: at most half a block's scale a rank, averaged
+            _, scale = quantize_int8(g.float())
+            scales = torch.empty(2 * scale.numel(), device=dev)
+            dist.all_gather_into_tensor(scales, scale, group=tm2.groups["data"])
+            bound = scales.reshape(2, -1).sum(0) / 4
+            bound = bound[:, None].expand(-1, 256).reshape(-1)[:g.numel()]
+            diff = (got[k] - mean).abs().reshape(-1)
+            excess = float((diff - bound * (1 + 1e-5)
+                            - 1e-6 * mean.abs().reshape(-1)).max())
+            leaves[k] = {"max_abs_err": float(diff.max()),
+                         "max_bound": float(bound.max()),
+                         "excess_over_bound": excess,
+                         "err_state_max": float(err[k].abs().max()),
+                         "wire_bytes_int8": g.numel() + 4 * scale.numel(),
+                         "wire_bytes_fp32": 4 * g.numel()}
+            require(excess <= 0, f"sharded_train rank {rank}: "
+                    f"compressed_psum {k} off the fp32 mean by more than "
+                    f"the int8 bound ({excess})")
+        report["compressed_psum"] = {"seconds": psum_s, "leaves": leaves}
+        torch.cuda.synchronize()
+    finally:
+        shutdown_distributed()
+    print("SHARDED_TRAIN " + json.dumps(report), flush=True)
+    return 0
+
+
+def phase_sharded_train(dev, smi):
+    """Sharded training at Delicious-200K width: the one-process run of
+    ``SHARDED_STEPS`` steps from the seeded parameters (``train_wol``'s
+    rows and TrainConfig), then ``train_worker`` as two processes on the
+    card over gloo: the (1, 2) run's losses within ``SHARDED_RTOL`` of
+    the one-process run's, each rank holding about half the sharded
+    state, no gather in its step; each rank's served shard bit for bit
+    the one-process ``shard_index`` oracle on the gathered WOL; the
+    (2, 1) run's losses the one-process run's first ``DP_STEPS``;
+    ``compressed_psum`` within its int8 bound.  Then the train launcher
+    at Qwen2-0.5B width with ``--devices 2 --mesh 1x2``, again with
+    ``--mesh 2x1`` (resumes and trains on), and on one device (resumes,
+    nothing left).  Returns each rank's ``lss_topk`` launches."""
+    t_phase = time.perf_counter()
+    cfg, data, tc = sharded_train_setup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = lambda p, b: xc.loss(p, b, cfg)   # noqa: E731
+    tr = Trainer(loss, lambda g: xc.init_params(g, cfg, dev), tc, device=dev)
+    it = ShardedBatchIterator(data, BATCH, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):    # a line a step
+        state, hist = tr.fit(torch.Generator(dev).manual_seed(SEED + 20),
+                             it, SHARDED_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    one = {"losses": [h["loss"] for h in hist],
+           "fit_s": time.perf_counter() - t0,
+           "ms_per_step": timed_steps(make_train_step(loss, tc), state,
+                                      next(it)),
+           "state_bytes": state_bytes(state),
+           "peak_allocated_mb": (torch.cuda.max_memory_allocated() - base)
+           / 2 ** 20}
+    del state, tr, it
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="sharded_train_") as tmp:
+        port = free_port()
+        t0 = time.perf_counter()
+        rcs, outs = run_fleet(
+            [[sys.executable, str(ROOT / "chip_smoke.py"), "--train-worker",
+              str(r), tmp, str(port)] for r in range(2)],
+            FLEET_TIMEOUT_S, "sharded_train")
+        fleet_s = time.perf_counter() - t0
+        for r, (rc, out) in enumerate(zip(rcs, outs)):
+            require(rc == 0, f"sharded_train: rank {r} exited {rc}:\n"
+                    f"{out[-4000:]}")
+        reports = []
+        for out in outs:
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("SHARDED_TRAIN ")]
+            require(lines, f"sharded_train: no report in\n{out[-3000:]}")
+            reports.append(json.loads(lines[-1][len("SHARDED_TRAIN "):]))
+        d = Path(tmp)
+        w = torch.from_numpy(np.load(d / "w.npy")).to(dev)
+        b = torch.from_numpy(np.load(d / "b.npy")).to(dev)
+        q = torch.from_numpy(np.load(d / "q.npy")).to(dev)
+        served = [np.load(d / f"served_r{r}.npz") for r in range(2)]
+        # the one-process oracle: both shards of the gathered WOL in this
+        # process, the same θ
+        theta = init_hyperplanes(torch.Generator(dev).manual_seed(SEED + 21),
+                                 cfg.hidden + 1, DELICIOUS.lss.k_bits,
+                                 DELICIOUS.lss.n_tables, device=dev)
+        stack, _, m_local = shard_index(augment_neurons(w, b), theta,
+                                        DELICIOUS.lss, 2)
+        with uncounted((lss_topk_ops.lss_topk_cuda,)):
+            oracle = [t.cpu().numpy() for t in make_sharded_predict(
+                ServingMesh.local(2, dev), m_local, TOP_K,
+                with_aux=True)(q, stack)]
+        del w, b, stack
+    for r, z in enumerate(served):
+        require(all(same_bits(z[k], o) for k, o in
+                    zip(("logits", "ids", "sample"), oracle)),
+                f"sharded_train: rank {r}'s served shard differs from the "
+                f"one-process oracle")
+    rel = [float(np.max(np.abs(np.subtract(r["model_sharded"]["losses"],
+                                           one["losses"]))
+                        / np.abs(one["losses"]))) for r in reports]
+    require(max(rel) <= SHARDED_RTOL,
+            f"sharded_train: (1, 2) losses off the one-process run by {rel}")
+    dp_rel = [float(np.max(np.abs(np.subtract(
+        r["data_parallel"]["losses"], one["losses"][:DP_STEPS]))
+        / np.abs(one["losses"][:DP_STEPS]))) for r in reports]
+    require(max(dp_rel) <= SHARDED_RTOL,
+            f"sharded_train: (2, 1) losses off the one-process run by "
+            f"{dp_rel}")
+    for r in reports:
+        ms = r["model_sharded"]
+        frac = ms["state_bytes"] / one["state_bytes"]
+        require(0.45 < frac < 0.55,
+                f"sharded_train rank {r['rank']}: {frac:.3f} of the state")
+        require(set(ms["collectives"]) == {"all_reduce"},
+                f"sharded_train rank {r['rank']}: a (1, 2) step ran "
+                f"{ms['collectives']}: only all-reduces of activations, "
+                f"batch-sized values and scalars are expected")
+        require(r["served"]["lss_topk_launches"] > 0,
+                f"sharded_train rank {r['rank']}: lss_topk not launched")
+        ms["state_fraction"] = frac
+
+    launcher = sharded_launch_runs()
+    emit({"phase": "sharded_train", "model": cfg.name,
+          "input_dim": cfg.input_dim, "hidden": cfg.hidden,
+          "output_dim": cfg.output_dim, "steps": SHARDED_STEPS,
+          "batch": BATCH, "mesh": "1x2 and 2x1, two processes on one card "
+          "over gloo", "one_process": one, "reports": reports,
+          "loss_max_rel_diff_1x2": rel, "loss_max_rel_diff_2x1": dp_rel,
+          "served": "bit-identical to the one-process 2-shard oracle",
+          "fleet_s": fleet_s, "launcher": launcher,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    return {str(r["rank"]): r["served"]["lss_topk_launches"]
+            for r in reports}
+
+
+def fit_line(out):
+    """The train launcher's fit seconds and checkpoint saves."""
+    return grab(r"fit: (.*)", out, "fit").group(1)
+
+
+def sharded_launch_runs():
+    """``repro_torch.launch.train`` at Qwen2-0.5B width on one directory:
+    ``--devices 2 --mesh 1x2`` to step 20, ``--devices 2 --mesh 2x1``
+    resuming to step ``SHARDED_LAUNCH_STEPS``, one device resuming with
+    nothing left; seconds and losses."""
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="sharded_launch_") as tmp:
+        base = ["--arch", "qwen2-0.5b", "--batch", str(SHARDED_LAUNCH_BATCH),
+                "--ckpt-dir", tmp]
+        out, s = run_launcher(
+            "repro_torch.launch.train",
+            base + ["--steps", "20", "--devices", "2", "--mesh", "1x2"], 900)
+        require("mesh: 1x2 (data x model) over 2 ranks, backend gloo" in out,
+                f"sharded launch 1x2: no mesh line\n{out[-2000:]}")
+        runs["1x2"] = {"seconds": s, "fit": fit_line(out), "loss": float(
+            grab(r"done: step 20 loss ([\d.]+)", out, "1x2 train").group(1))}
+        n = SHARDED_LAUNCH_STEPS
+        out, s = run_launcher(
+            "repro_torch.launch.train",
+            base + ["--steps", str(n), "--devices", "2", "--mesh", "2x1"],
+            900)
+        require("[trainer] resumed from step 20" in out
+                and "mesh: 2x1 (data x model)" in out,
+                f"sharded launch 2x1: did not resume\n{out[-2000:]}")
+        runs["2x1"] = {"seconds": s, "resumed_from": 20, "fit": fit_line(out),
+                       "loss": float(grab(rf"done: step {n} loss ([\d.]+)",
+                                          out, "2x1 train").group(1))}
+        out, s = run_launcher("repro_torch.launch.train",
+                              base + ["--steps", str(n)], 900)
+        require(f"resumed at step {n}: nothing left to train" in out,
+                f"sharded launch one device: did not resume\n{out[-2000:]}")
+        runs["one_device"] = {"seconds": s, "resumed_from": n,
+                              "fit": fit_line(out)}
+    runs["batch"], runs["seq"] = SHARDED_LAUNCH_BATCH, 128
+    return runs
+
+
 def fleet_launcher_lines(out, what):
     launches = ast.literal_eval(grab(r"kernel launches: (\{.*\})", out,
                                      f"{what} kernel launches").group(1))
@@ -3219,6 +3605,7 @@ def main() -> int:
         counters)
     fleet_reports = phase_fleet(dev, smi, res["model"], res["index"],
                                 res["lss_config"], res["data"])
+    sharded_train_launches = phase_sharded_train(dev, smi)
     refresh_launches, injected = phase_refresh(dev, smi, res, counters)
     del res
     decode_launches, decode_device, decode_state = phase_decode(
@@ -3245,7 +3632,8 @@ def main() -> int:
                        for k, n in sharded_launches.items()},
         sharded_engine=sharded_engine_device,
         fleet={r["rank"]: r["profiler_lss_topk_kernels"]
-               for r in fleet_reports})
+               for r in fleet_reports},
+        sharded_train=sharded_train_launches)
     phase_preemption(dev)
     phase_paper_table1(dev, smi, counters)
     phase_paper_table2(dev, smi, counters)
@@ -3263,5 +3651,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-worker"]:
         with torch.no_grad():
             sys.exit(fleet_worker(int(sys.argv[2]), sys.argv[3],
+                                  int(sys.argv[4])))
+    if sys.argv[1:2] == ["--train-worker"]:
+        with torch.no_grad():
+            sys.exit(train_worker(int(sys.argv[2]), sys.argv[3],
                                   int(sys.argv[4])))
     sys.exit(main())

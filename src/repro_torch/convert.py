@@ -16,13 +16,14 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.models.xc import XCModel
 from repro_torch.optim.adamw import AdamWState
-from repro_torch.train.trainer import TrainState
+from repro_torch.train.trainer import TrainState, state_shardings
 from repro_torch.utils.tree import tree_map
 
 __all__ = ["tensor_from_numpy", "xc_params_from_numpy",
            "lstm_params_from_numpy", "transformer_params_from_numpy",
            "lss_index_from_numpy", "lss_index_stack_from_numpy",
-           "adamw_state_from_numpy", "train_state_from_numpy"]
+           "adamw_state_from_numpy", "train_state_from_numpy",
+           "sharded_train_state_from_numpy"]
 
 # JAX's XC parameter names -> the port's (the rest are the same)
 _XC_NAMES = {"embed": "embed_table"}
@@ -142,3 +143,23 @@ def train_state_from_numpy(params, opt, step,
     return TrainState(_params(params, dev),
                       adamw_state_from_numpy(*opt, device=dev),
                       tensor_from_numpy(step, dev).to(torch.int32))
+
+
+def sharded_train_state_from_numpy(params, opt, step, mesh, param_specs
+                                   ) -> TrainState:
+    """A :class:`TrainState` from numpy fields (``params`` a nested dict
+    under the port's names, ``opt`` the ``(step, mu, nu)`` of an
+    ``AdamWState``, ``step``) laid out on ``mesh`` by ``param_specs``, as
+    ``trainer.state_shardings`` lays a state out (the moments as the
+    parameters, the step replicated): every rank passes the whole arrays
+    and keeps its own pieces."""
+    cpu = torch.device("cpu")
+
+    def tensors(tree):
+        return tree_map(lambda a: tensor_from_numpy(a, cpu), tree)
+
+    state = TrainState(tensors(params), AdamWState(
+        tensor_from_numpy(opt[0], cpu).to(torch.int32), tensors(opt[1]),
+        tensors(opt[2])), tensor_from_numpy(step, cpu).to(torch.int32))
+    return tree_map(lambda t, sh: sh.place(t), state,
+                    state_shardings(mesh, param_specs))

@@ -7,6 +7,12 @@ order is ``np.random.default_rng((seed, epoch)).permutation(n)``, as in
 the JAX package, so both iterators yield the same batches for the same
 arrays and seed.  Batches are gathered on the host and arrive as tensors
 on ``device`` (the GPU unless the caller asks for the CPU).
+
+With a ``mesh``, every rank builds the same global batch from the seed
+and keeps its own rows of it (split over ``data_axes``, replicated over
+the other axes) as a ``DTensor`` (``DTensor.from_local``: no scatter from
+rank 0).  The state stays ``{step, seed}``, so a restore onto another
+mesh resumes at the same global batch.
 """
 
 from __future__ import annotations
@@ -15,19 +21,23 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import resolve_device
+from repro_torch.utils.sharding import P, place, spec_placements
 
 __all__ = ["ShardedBatchIterator"]
 
 
 class ShardedBatchIterator:
-    """Yields dict batches of tensors on ``device``; the last partial
-    batch of each epoch is dropped."""
+    """Yields dict batches of tensors on ``device`` (or sharded over
+    ``data_axes`` of ``mesh``); the last partial batch of each epoch is
+    dropped."""
 
     def __init__(self, arrays: dict[str, np.ndarray], batch_size: int,
                  *, seed: int = 0, device: str | torch.device | None = None,
-                 start_step: int = 0):
+                 start_step: int = 0, mesh: DeviceMesh | None = None,
+                 data_axes: tuple[str, ...] = ("data",)):
         sizes = {k: v.shape[0] for k, v in arrays.items()}
         if len(set(sizes.values())) != 1:
             raise ValueError(f"arrays differ in length: {sizes}")
@@ -35,7 +45,10 @@ class ShardedBatchIterator:
         self.n = next(iter(sizes.values()))
         self.batch_size = batch_size
         self.seed = seed
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.device = (resolve_device(device) if mesh is None
+                       else torch.device(mesh.device_type))
         self.step = start_step
         self.batches_per_epoch = self.n // batch_size
         if self.batches_per_epoch <= 0:
@@ -63,5 +76,9 @@ class ShardedBatchIterator:
         perm = self._epoch_perm(epoch)
         idx = perm[i * self.batch_size:(i + 1) * self.batch_size]
         self.step += 1
-        return {k: torch.from_numpy(v[idx]).to(self.device)
-                for k, v in self.arrays.items()}
+        batch = {k: torch.from_numpy(v[idx]) for k, v in self.arrays.items()}
+        if self.mesh is None:
+            return {k: v.to(self.device) for k, v in batch.items()}
+        return {k: place(v, self.mesh, spec_placements(
+                    self.mesh, P(self.data_axes), v.ndim))
+                for k, v in batch.items()}

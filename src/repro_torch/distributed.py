@@ -24,6 +24,12 @@ Its intra-host and cross-host process groups come from ``new_group``.
 The JAX mesh's axis names have no counterpart: torch has no named mesh
 axes, and the groups are what a collective is given.
 
+Training (:func:`make_training_mesh`, beside the serving mesh): a
+``DeviceMesh`` of named dims (``data``, ``model``) over every rank of the
+fleet, row-major as ``jax.make_mesh`` lays devices out, with its data and
+model process groups; it reuses the group :func:`init_distributed`
+started and its backend.
+
 Backend.  NCCL where no two ranks of the fleet drive the same device
 (each rank publishes its device's UUID through the store before the
 group starts); gloo where ranks share a device — NCCL refuses two ranks
@@ -50,9 +56,10 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 __all__ = ["DIST_COORDINATOR_ENV", "DIST_NUM_PROCESSES_ENV",
-           "DIST_PROCESS_ID_ENV", "ServingMesh", "init_distributed",
-           "is_distributed", "process_index", "process_count",
-           "distributed_store", "make_serving_mesh", "process_allgather",
+           "DIST_PROCESS_ID_ENV", "ServingMesh", "TrainingMesh",
+           "init_distributed", "is_distributed", "process_index",
+           "process_count", "distributed_store", "make_serving_mesh",
+           "make_training_mesh", "process_allgather",
            "shutdown_distributed"]
 
 DIST_COORDINATOR_ENV = "REPRO_DIST_COORDINATOR"
@@ -246,6 +253,46 @@ def distributed_store():
     if _state is None:
         raise RuntimeError("no fleet: call init_distributed first")
     return _state.store
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingMesh:
+    """A training mesh over the fleet: ``mesh`` (a ``DeviceMesh`` whose
+    dims are named by ``axes``), this rank's ``device``, the fleet's
+    ``backend``, and the process group of each axis (``groups["data"]``,
+    ``groups["model"]``: the ranks that share this rank's place on every
+    other axis)."""
+
+    mesh: Any
+    device: torch.device
+    backend: str
+    groups: dict
+
+
+def make_training_mesh(shape: tuple[int, ...],
+                       axes: tuple[str, ...] = ("data", "model")
+                       ) -> TrainingMesh:
+    """A ``DeviceMesh`` of ``shape`` over every rank of the fleet that
+    :func:`init_distributed` started (their product must be its size),
+    ranks laid out row-major: rank ``r`` of a ``(D, M)`` mesh is data
+    shard ``r // M``, model shard ``r % M``.  Every rank must call it, in
+    the same order as its other group-making calls."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if _state is None:
+        raise RuntimeError("no fleet: call init_distributed first")
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    world = dist.get_world_size()
+    if len(shape) != len(axes) or int(np.prod(shape)) != world:
+        raise ValueError(f"a {shape} mesh over axes {axes} needs "
+                         f"{int(np.prod(shape))} ranks; the fleet has "
+                         f"{world}")
+    with _state_lock:
+        mesh = DeviceMesh(_state.device.type,
+                          torch.arange(world).reshape(shape),
+                          mesh_dim_names=axes)
+        return TrainingMesh(mesh, _state.device, _state.backend,
+                            {a: mesh.get_group(a) for a in axes})
 
 
 def make_serving_mesh() -> ServingMesh:

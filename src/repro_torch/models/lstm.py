@@ -6,8 +6,15 @@ Functional, over a params dict with the JAX package's names and layout
 ``w_out``, ``b_out``), so that :func:`init_params` and :func:`loss` give
 the trainer the face ``models/xc.py`` gives it.  The cells run as a
 Python loop over time, gates in JAX's order i, f, g, o.  Dropout draws
-from a ``torch.Generator`` where JAX takes a key.  ``param_specs`` (the
-sharding of each leaf) waits for the multi-GPU slice.
+from a ``torch.Generator`` where JAX takes a key.
+
+:func:`param_specs` lays the leaves out on a ``(data, model)`` mesh as
+JAX does: the vocab rows of ``embed`` and of the WOL, and the gate
+columns of each cell, over ``model``.  Under a mesh the cell gathers a
+step's ``[B, 4H]`` gates (every rank needs all four gates of a hidden
+unit), the lookup sums the rank's rows with one all-reduce, and the loss
+reduces its log-sum-exp and gold logits over the vocab shards with one
+all-reduce each (the gold logit by JAX's iota-mask sum).
 """
 
 from __future__ import annotations
@@ -17,8 +24,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.utils.sharding import (P, embedding, is_dtensor, logsumexp,
+                                        maybe_shard, place, replicate,
+                                        vocab_iota)
 
-__all__ = ["LSTMConfig", "init_params", "embed_seq", "loss"]
+__all__ = ["LSTMConfig", "init_params", "param_specs", "embed_seq", "loss"]
 
 
 class LSTMConfig(NamedTuple):
@@ -58,15 +68,26 @@ def init_params(generator: torch.Generator, cfg: LSTMConfig,
             "b_out": torch.zeros(v, dtype=cfg.dtype, device=dev)}
 
 
+def param_specs(cfg: LSTMConfig) -> dict:
+    return {
+        "embed": P("model", None),
+        "layers": {"wx": P(None, None, "model"),
+                   "wh": P(None, None, "model"),
+                   "b": P(None, "model")},
+        "w_out": P("model", None),
+        "b_out": P("model"),
+    }
+
+
 def _lstm_layer(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """``[B, S, H] -> [B, S, H]``, one cell a time step."""
-    bsz, seq, h = x.shape
-    hp = x.new_zeros((bsz, h))
-    cp = x.new_zeros((bsz, h))
+    seq = x.shape[1]
+    hp = torch.zeros_like(x[:, 0])
+    cp = torch.zeros_like(x[:, 0])
     ys = []
     for t in range(seq):
-        gates = x[:, t] @ wx + hp @ wh + b
+        gates = maybe_shard(x[:, t] @ wx + hp @ wh + b, P("data", None))
         i, f, g, o = gates.chunk(4, dim=-1)
         cp = torch.sigmoid(f) * cp + torch.sigmoid(i) * torch.tanh(g)
         hp = torch.sigmoid(o) * torch.tanh(cp)
@@ -80,14 +101,16 @@ def embed_seq(params: dict, tokens: torch.Tensor, cfg: LSTMConfig,
     query at each position).  With a ``generator``, inverted dropout at
     ``cfg.dropout``: each unit kept with probability ``1 - dropout`` and
     scaled by its inverse."""
-    x = params["embed"][tokens.long()]
+    x = maybe_shard(embedding(params["embed"], tokens), P("data", None, None))
     lay = params["layers"]
     for i in range(cfg.n_layers):
         x = _lstm_layer(x, lay["wx"][i], lay["wh"][i], lay["b"][i])
     if generator is not None and cfg.dropout > 0:
         keep = torch.rand(x.shape, generator=generator,
-                          device=generator.device).to(x.device) \
-            < 1 - cfg.dropout
+                          device=generator.device) < 1 - cfg.dropout
+        # every rank draws the whole mask and keeps its rows
+        keep = (place(keep, x.device_mesh, x.placements)
+                if is_dtensor(x) else keep.to(x.device))
         x = torch.where(keep, x / (1 - cfg.dropout), torch.zeros_like(x))
     return x
 
@@ -101,6 +124,8 @@ def loss(params: dict, batch: dict[str, torch.Tensor], cfg: LSTMConfig,
           + params["b_out"]).float()
     labels = batch["labels"]
     mask = labels >= 0
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    logz = logsumexp(lg, -1)
+    iota = vocab_iota(lg)
+    gold = replicate(torch.where(iota == labels.clamp(min=0)[..., None], lg,
+                                 0.0).sum(-1))
     return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1)

@@ -17,6 +17,8 @@ Entry points:
     per POOL SLOT with per-row cache lengths (continuous batching; see
     ``repro_torch.serve.decode``).
   * ``decode_step_paged(...)`` — the same over a paged KV arena.
+  * ``param_specs(cfg)`` / ``cache_specs(cfg, batch)`` — the layouts on a
+    ``(data, model)`` mesh (:class:`~repro_torch.utils.sharding.P`).
 
 The decode steps write the new KV into the cache tensors they are given,
 IN PLACE, and return those same tensors: this takes the place of the
@@ -25,8 +27,19 @@ TPU), and it is what lets the serving engine capture a step as a CUDA
 graph over the pool's own slabs.
 
 The MoE styles come with the rest of the model zoo (ROADMAP Queue 1 item
-8); ``param_specs``, ``cache_specs`` and the sharding constraints with
-the training half of multi-GPU sharding (item 7b).
+8).
+
+Sharded (``param_specs`` under a mesh the trainer makes active), the
+vocab rows, the attention heads and the FFN columns are split over
+``model`` as in the JAX package, and the same code runs on ``DTensor``
+leaves.  Where JAX's GSPMD pads a head count that the model axis does
+not divide, ``DTensor`` cannot split a head: q, k and v are then
+replicated over ``model`` before their heads are unpacked (JAX does this
+for decode only), and every model rank attends over all heads.
+Attention itself runs on each rank's local heads and rows
+(:func:`_attention`): its masks and chunk loop are plain tensors.  The
+lookup, the gold logit and the log-sum-exp never gather the table or
+the logits (:mod:`repro_torch.utils.sharding`).
 """
 
 from __future__ import annotations
@@ -37,10 +50,15 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.utils.sharding import (P, contiguous_stride, embedding,
+                                        is_dtensor, logsumexp, maybe_shard,
+                                        mesh_axis_size, replicate,
+                                        vocab_iota)
 
-__all__ = ["TransformerConfig", "init_params", "forward", "logits_head",
-           "gold_logit", "lm_loss", "KVCache", "init_cache", "prefill",
-           "decode_step", "decode_step_pooled", "decode_step_paged"]
+__all__ = ["TransformerConfig", "init_params", "param_specs", "cache_specs",
+           "forward", "logits_head", "gold_logit", "lm_loss", "KVCache",
+           "init_cache", "prefill", "decode_step", "decode_step_pooled",
+           "decode_step_paged"]
 
 
 class TransformerConfig(NamedTuple):
@@ -146,6 +164,37 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     return params
 
 
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The layout of each parameter on a (data, model) mesh: vocab, d_ff
+    and the attention heads over ``model`` (JAX's dense keys)."""
+    _dense_only(cfg)
+    lyr = {
+        "ln1": P(None, None), "ln2": P(None, None),
+        "wq": P(None, None, "model"),
+        "wk": P(None, None, "model"),
+        "wv": P(None, None, "model"),
+        "wo": P(None, "model", None),
+    }
+    if cfg.qkv_bias:
+        lyr["bq"] = P(None, "model")
+        lyr["bk"] = P(None, "model")
+        lyr["bv"] = P(None, "model")
+    if cfg.qk_norm:
+        lyr["q_norm"] = P(None, None)
+        lyr["k_norm"] = P(None, None)
+    lyr["w_gate"] = P(None, None, "model")
+    lyr["w_up"] = P(None, None, "model")
+    lyr["w_down"] = P(None, "model", None)
+    specs = {
+        "embed": P("model", None),
+        "layers": lyr,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P("model", None)
+    return specs
+
+
 def _layer_params(params: dict, i: int) -> dict:
     return {k: a[i] for k, a in params["layers"].items()}
 
@@ -171,6 +220,23 @@ def _write_cache(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor
     return cache
 
 
+def _attention(q, k, v, cfg: TransformerConfig):
+    """Blockwise causal attention over each rank's own rows and heads:
+    ``DTensor`` q, k, v (laid out alike, heads whole on every rank) are
+    taken apart into their local pieces and the output put back together
+    the same way."""
+    if not is_dtensor(q):
+        return L.attention_blockwise(q, k, v, causal=True,
+                                     kv_chunk=cfg.kv_chunk,
+                                     q_chunk=cfg.q_chunk)
+    out = L.attention_blockwise(q.to_local(), k.to_local(), v.to_local(),
+                                causal=True, kv_chunk=cfg.kv_chunk,
+                                q_chunk=cfg.q_chunk).contiguous()
+    return type(q).from_local(out, q.device_mesh, q.placements,
+                              run_check=False, shape=q.shape,
+                              stride=contiguous_stride(q.shape))
+
+
 def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
                 kv_len=None):
     """Shared attention block. mode: train | prefill | decode.  ``rope`` is
@@ -182,6 +248,14 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
     v = torch.einsum("bsd,dn->bsn", h, lp["wv"])
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    # a head count the model axis does not divide would split a head
+    # when the packed [b, s, n*h] is unpacked: replicate q, k, v first
+    # (JAX constrains decode alike; GSPMD pads the other modes)
+    tp = mesh_axis_size("model")
+    if tp and (cfg.n_heads % tp or cfg.n_kv_heads % tp):
+        q = maybe_shard(q, P("data", None, None))
+        k = maybe_shard(k, P("data", None, None))
+        v = maybe_shard(v, P("data", None, None))
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -198,17 +272,20 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
         out = L.attention_decode(q, k_cache, v_cache, kv_len)
         new_cache = (k_cache, v_cache)
     else:
-        out = L.attention_blockwise(q, k, v, causal=True,
-                                    kv_chunk=cfg.kv_chunk,
-                                    q_chunk=cfg.q_chunk)
+        out = _attention(q, k, v, cfg)
         new_cache = (k, v) if mode == "prefill" else None
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + torch.einsum("bsn,nd->bsd", out, lp["wo"]), new_cache
+    # heads split over model: each rank's share of the projection is a
+    # partial sum, reduced by one all-reduce
+    out = maybe_shard(torch.einsum("bsn,nd->bsd", out, lp["wo"]),
+                      P("data", None, None))
+    return x + out, new_cache
 
 
 def _ffn_block(x, lp, cfg: TransformerConfig):
     h = L.rms_norm(x, lp["ln2"])
-    return x + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return x + maybe_shard(L.swiglu(h, lp["w_gate"], lp["w_up"],
+                                    lp["w_down"]), P("data", None, None))
 
 
 def _layer(x, lp, cfg, rope, mode, cache=None, kv_len=None):
@@ -223,10 +300,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     ``caches`` (prefill only) is ``(k, v)``, each ``[L, B, S, KV, H]``;
     ``aux`` is the MoE balance loss, 0 for the dense architectures."""
     _dense_only(cfg)
-    x = params["embed"][tokens].to(cfg.dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device
-                             ).expand(tokens.shape)
-    rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
+    x = maybe_shard(embedding(params["embed"], tokens),
+                    P("data", None, None)).to(cfg.dtype)
+    # every row's positions are 0..S-1: one row of cos/sin broadcasts
+    positions = torch.arange(tokens.shape[1],
+                             device=_local(tokens).device)[None]
+    rope = tuple(_replicated_like(t, x) for t in L.rope_cos_sin(
+        positions, cfg.head_dim, cfg.rope_base))
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, cache = _layer(x, _layer_params(params, i), cfg, rope, mode)
@@ -234,8 +314,24 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             ks.append(cache[0])
             vs.append(cache[1])
     caches = (torch.stack(ks), torch.stack(vs)) if mode == "prefill" else None
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _replicated_like(torch.zeros((), dtype=torch.float32,
+                                       device=_local(x).device), x)
     return L.rms_norm(x, params["final_norm"]), caches, aux
+
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _replicated_like(t: torch.Tensor, ref):
+    """``t`` (the same on every rank) as a replicated ``DTensor`` on
+    ``ref``'s mesh where ``ref`` is one, else as it is."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh = ref.device_mesh
+    return type(ref).from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                run_check=False)
 
 
 def logits_head(params: dict, hidden: torch.Tensor,
@@ -245,9 +341,15 @@ def logits_head(params: dict, hidden: torch.Tensor,
 
 
 def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The label's logit (one device here: a gather, where JAX takes an
-    iota-mask sum that stays sharded)."""
-    return logits.gather(-1, labels[..., None].long())[..., 0]
+    """The label's logit, extracted so that it stays sharded.
+
+    A gather over a vocab-sharded axis all-gathers the whole ``[B, S, V]``
+    logits (JAX measured 33 GB a device on qwen2-0.5b).  The iota-mask
+    sum partitions cleanly: each shard contributes its local slice,
+    combined by one ``[B, S]`` all-reduce."""
+    iota = vocab_iota(logits)
+    return replicate(torch.where(iota == labels[..., None], logits,
+                                 0.0).sum(-1))
 
 
 def lm_loss(params: dict, batch: dict, cfg: TransformerConfig
@@ -257,7 +359,7 @@ def lm_loss(params: dict, batch: dict, cfg: TransformerConfig
     logits = logits_head(params, hidden, cfg)
     labels = batch["labels"]
     mask = labels >= 0
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = logsumexp(logits, -1)
     gold = gold_logit(logits, labels.clamp(min=0))
     nll = (logz - gold) * mask
     loss = nll.sum() / mask.sum().clamp(min=1)
@@ -270,6 +372,16 @@ class KVCache(NamedTuple):
     k: torch.Tensor    # [n_layers, B, S_max, KV, H]
     v: torch.Tensor
     length: int        # valid prefix length
+
+
+def cache_specs(cfg: TransformerConfig, batch: int) -> KVCache:
+    """Sharding policy: batch over data when it divides, else the sequence
+    axis takes both mesh axes (long-context batch=1 decode)."""
+    if batch >= 16:
+        spec = P(None, "data", "model", None, None)
+    else:
+        spec = P(None, None, ("data", "model"), None, None)
+    return KVCache(spec, spec, P())
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -304,7 +416,7 @@ def _decode_layers(params: dict, token: torch.Tensor,
     [B, 1], kv_len scalar or [B] -> hidden [B, D].  Every op is
     row-parallel over B."""
     _dense_only(cfg)
-    x = params["embed"][token[:, None]].to(cfg.dtype)        # [B, 1, D]
+    x = embedding(params["embed"], token[:, None]).to(cfg.dtype)  # [B, 1, D]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
     for i in range(cfg.n_layers):
         x, (k_i, v_i) = _layer(x, _layer_params(params, i), cfg, rope,

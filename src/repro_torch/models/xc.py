@@ -12,6 +12,15 @@ trained dict for ``embed`` and serving.  The dict's keys are the module's
 parameter names (``embed_table``, ``w_out``, ``b_out``; the JAX package
 calls the first ``embed``).  The embedding's gradient is dense, as JAX's
 ``take`` gradient is.
+
+Sharded (:func:`param_specs`, under a mesh the trainer makes active), the
+input table and the WOL rows are split over ``model`` as the JAX
+package splits them: the lookup sums each rank's rows with one
+all-reduce of the ``[B, H]`` bag, the logits stay split over their
+labels, and the loss reduces the log-sum-exp and the gold logits with
+one all-reduce each of the batch's size (the gold logits by the JAX
+package's iota-mask sum, which never gathers the logits).  On one device
+the same code runs on plain tensors.
 """
 
 from __future__ import annotations
@@ -24,8 +33,10 @@ from torch.func import functional_call
 
 from repro_torch.core.topk import topk_lowest_index
 from repro_torch.device import resolve_device
+from repro_torch.utils.sharding import (P, embedding, logsumexp, maybe_shard,
+                                        replicate, vocab_iota)
 
-__all__ = ["XCConfig", "XCModel", "init_params", "loss"]
+__all__ = ["XCConfig", "XCModel", "init_params", "param_specs", "loss"]
 
 
 class XCConfig(NamedTuple):
@@ -91,13 +102,17 @@ class XCModel(nn.Module):
         """EmbeddingBag(mean) + ReLU over int ``[B, max_in]`` ids, -1 pad:
         the LSS query embedding."""
         mask = (x_ids >= 0)[..., None]
-        rows = self.embed_table[x_ids.clamp(min=0).long()]    # [B, F, H]
+        rows = embedding(self.embed_table, x_ids.clamp(min=0))  # [B, F, H]
         denom = mask.sum(1).clamp(min=1).to(rows.dtype)
-        bag = torch.where(mask, rows, torch.zeros_like(rows)).sum(1) / denom
-        return torch.relu(bag)
+        bag = (rows * mask.to(rows.dtype)).sum(1) / denom
+        # a row-sharded table gives each rank a partial bag: one all-reduce
+        return torch.relu(maybe_shard(bag, P("data", None)))
 
     def logits(self, x_ids: torch.Tensor) -> torch.Tensor:
-        h = self.embed(x_ids)
+        # replicated over model already; the constraint is for the
+        # backward: h's gradient, partial over the WOL's row shards, is
+        # all-reduced here before the ReLU's backward
+        h = maybe_shard(self.embed(x_ids), P("data", None))
         return (h @ self.w_out.T + self.b_out).float()
 
     def forward(self, x_ids: torch.Tensor) -> torch.Tensor:
@@ -115,8 +130,15 @@ class XCModel(nn.Module):
 
 def _multilabel_ce(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     mask = labels >= 0
-    logz = torch.logsumexp(lg, dim=-1, keepdim=True)
-    gold = lg.gather(-1, labels.clamp(min=0).long())
+    logz = logsumexp(lg, -1, keepdim=True)
+    # shardable multi-label gold logits: one iota-mask pass a label slot
+    # (stacked along dim 1, not -1: torch 2.11's DTensor took a stack
+    # along -1 of [B] pieces split over the batch for a split of dim 1)
+    iota = vocab_iota(lg)
+    lab = labels.clamp(min=0)
+    gold = replicate(torch.stack(
+        [torch.where(iota == lab[:, j:j + 1], lg, 0.0).sum(-1)
+         for j in range(labels.shape[1])], 1))
     nll = -(gold - logz) * mask
     return (nll.sum(-1) / mask.sum(-1).clamp(min=1)).mean()
 
@@ -127,6 +149,16 @@ def init_params(generator: torch.Generator, cfg: XCConfig,
     """The parameters of a fresh :class:`XCModel` as a dict of tensors."""
     model = XCModel(cfg, generator, device)
     return {k: p.detach() for k, p in model.named_parameters()}
+
+
+def param_specs(cfg: XCConfig) -> dict[str, P]:
+    """The layout of each parameter on a ``(data, model)`` mesh (JAX's,
+    under the port's names)."""
+    return {
+        "embed_table": P("model", None),   # input vocab sharded
+        "w_out": P("model", None),         # WOL rows sharded (LSS shards match)
+        "b_out": P("model"),
+    }
 
 
 def loss(params: dict[str, torch.Tensor], batch: dict[str, torch.Tensor],

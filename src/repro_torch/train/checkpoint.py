@@ -17,10 +17,18 @@ other).
   manifest.
 * ROLLING: ``keep_last`` checkpoints are kept; on resume the newest
   readable one wins (a torn directory is skipped, not fatal).
+* ELASTIC: a sharded state (``DTensor`` leaves) is saved in the same
+  format, whole: each leaf gathered in turn on every rank (one leaf in
+  memory at a time) and written by rank 0 alone, then the manifest
+  fsynced, the directory renamed, and a barrier, so that no rank reads
+  the directory before it is complete.  ``restore(..., shardings=)`` lays
+  each leaf out on the CURRENT mesh, whatever mesh (or device) saved it:
+  every rank reads the file and keeps its own piece.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -30,7 +38,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.utils.sharding import full_tensor, is_dtensor
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 __all__ = ["save", "all_steps", "latest_step", "restore", "restore_latest"]
@@ -50,6 +60,7 @@ _BF16_STORED = np.dtype("V2")
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -71,22 +82,49 @@ def _from_numpy(arr: np.ndarray) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree: Any,
          extra: dict | None = None, keep_last: int = 3) -> str:
-    """Atomically write ``<ckpt_dir>/step_<step>``; prune old ones."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically write ``<ckpt_dir>/step_<step>``; prune old ones.  Every
+    rank of a sharded ``tree`` calls this (the leaves are gathered);
+    rank 0 writes."""
+    leaves, _ = tree_flatten(tree)
+    sharded = any(map(is_dtensor, leaves))
+    writer = not sharded or dist.get_rank() == 0
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    shapes, dtypes = {}, {}
+    # np.savez's layout, one leaf at a time: a stored zip of .npy entries
+    with contextlib.ExitStack() as stack:
+        zf = (stack.enter_context(zipfile.ZipFile(
+            os.path.join(tmp, "leaves.npz"), "w", zipfile.ZIP_STORED,
+            allowZip64=True)) if writer else None)
+        for i, v in enumerate(leaves):
+            arr = _to_numpy(v)
+            if zf is not None:
+                with zf.open(_key(i) + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.asanyarray(arr),
+                                              allow_pickle=False)
+            shapes[_key(i)] = list(arr.shape)
+            dtypes[_key(i)] = _dtype_name(arr)
+            del arr
+    if writer:
+        _write_final(ckpt_dir, tmp, final, step, len(leaves), shapes,
+                     dtypes, extra, keep_last)
+    if sharded:
+        dist.barrier()
+    return final
 
-    leaves, _ = tree_flatten(tree)
-    arrays = {_key(i): _to_numpy(v) for i, v in enumerate(leaves)}
-    np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
+
+def _write_final(ckpt_dir, tmp, final, step, n_leaves, shapes, dtypes,
+                 extra, keep_last) -> None:
     manifest = {
         "step": step,
-        "n_leaves": len(leaves),
-        "shapes": {k: list(v.shape) for k, v in arrays.items()},
-        "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
+        "n_leaves": n_leaves,
+        "shapes": shapes,
+        "dtypes": dtypes,
         "extra": extra or {},
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -99,7 +137,6 @@ def save(ckpt_dir: str, step: int, tree: Any,
 
     for s in all_steps(ckpt_dir)[:-keep_last]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
-    return final
 
 
 def all_steps(ckpt_dir: str) -> list[int]:
@@ -119,11 +156,14 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
-    """Load ``step_<step>`` into the structure of ``like``: each leaf on
-    the device and in the dtype of ``like``'s leaf.  Returns
-    ``(tree, manifest extra)``; raises if the stored leaves do not match
-    ``like`` in number or shape."""
+def restore(ckpt_dir: str, step: int, like: Any,
+            shardings: Any | None = None) -> tuple[Any, dict]:
+    """Load ``step_<step>`` into the structure of ``like``: each leaf in
+    the dtype of ``like``'s leaf, on its device, or, with ``shardings``
+    (a tree of ``NamedSharding`` like ``like``), laid out on the current
+    mesh (this rank keeps its piece).  Returns ``(tree, manifest
+    extra)``; raises if the stored leaves do not match ``like`` in number
+    or shape."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -131,24 +171,28 @@ def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
     if len(refs) != manifest["n_leaves"]:
         raise ValueError(f"step_{step}: {manifest['n_leaves']} leaves, "
                          f"expected {len(refs)}")
+    places = (tree_flatten(shardings)[0] if shardings is not None
+              else [None] * len(refs))
     out = []
     with np.load(os.path.join(path, "leaves.npz")) as data:
-        for i, ref in enumerate(refs):
+        for i, (ref, place) in enumerate(zip(refs, places)):
             arr = data[_key(i)]
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"step_{step}: {_key(i)} has shape "
                                  f"{arr.shape}, expected {tuple(ref.shape)}")
-            out.append(_from_numpy(arr).to(device=ref.device,
-                                           dtype=ref.dtype))
+            t = _from_numpy(arr).to(ref.dtype)
+            out.append(place.place(t) if place is not None
+                       else t.to(ref.device))
     return tree_unflatten(treedef, out), manifest.get("extra", {})
 
 
-def restore_latest(ckpt_dir: str, like: Any) -> tuple[Any, dict, int] | None:
+def restore_latest(ckpt_dir: str, like: Any, shardings: Any | None = None
+                   ) -> tuple[Any, dict, int] | None:
     """Newest readable checkpoint as ``(tree, extra, step)``, or None.
     Torn or corrupt directories are skipped."""
     for step in reversed(all_steps(ckpt_dir)):
         try:
-            tree, extra = restore(ckpt_dir, step, like)
+            tree, extra = restore(ckpt_dir, step, like, shardings)
             return tree, extra, step
         except _UNREADABLE as e:
             print(f"[ckpt] step_{step} unreadable ({e}); falling back")

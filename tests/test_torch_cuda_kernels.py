@@ -712,3 +712,102 @@ def test_world_one_sharded_step_is_captured(cuda, tmp_path):
             assert out.cand_ids is None
     finally:
         shutdown_distributed()
+
+
+# ----------------------------------------------------- sharded training --
+
+_TRAIN_WORKER = r"""
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.data.pipeline import ShardedBatchIterator
+from repro_torch.data.synthetic import xc_dataset
+from repro_torch.distributed import (init_distributed, make_training_mesh,
+                                     shutdown_distributed)
+from repro_torch.models import xc
+from repro_torch.train.trainer import TrainConfig, Trainer
+from repro_torch.utils.sharding import full_tensor
+
+d, rank = sys.argv[1], int(sys.argv[2])
+assert init_distributed(None, 2, rank, timeout_s=120,
+                        store=dist.FileStore(os.path.join(d, "store"), 2))
+tm = make_training_mesh((1, 2))
+assert tm.backend == "gloo" and tm.device.type == "cuda", tm
+cfg = xc.XCConfig("t", input_dim=3000, hidden=32, output_dim=4099,
+                  max_in=16, max_labels=4)
+data = xc_dataset(3, 512, cfg.input_dim, cfg.output_dim, n_topics=16,
+                  max_in=cfg.max_in, max_labels=cfg.max_labels)
+tr = Trainer(lambda p, b: xc.loss(p, b, cfg),
+             lambda g: xc.init_params(g, cfg, tm.device),
+             TrainConfig(lr=5e-3, warmup_steps=0, total_steps=10),
+             mesh=tm.mesh, param_specs=xc.param_specs(cfg))
+state, _ = tr.fit(torch.Generator(tm.device).manual_seed(0),
+                  ShardedBatchIterator({"x": data.x, "labels": data.labels},
+                                       64, mesh=tm.mesh), 4, log_every=4)
+w, b = state.params["w_out"], state.params["b_out"]
+full_w, full_b = full_tensor(w), full_tensor(b)    # staged through the host
+np.savez(os.path.join(d, f"shard{rank}.npz"), w=w.to_local().cpu().numpy(),
+         b=b.to_local().cpu().numpy(), full_w=full_w.cpu().numpy(),
+         full_b=full_b.cpu().numpy())
+shutdown_distributed(timeout_s=120)
+"""
+
+
+def test_lss_topk_on_a_shard_trained_on_1x2(cuda, tmp_path):
+    """Two processes share the card over gloo and train the XC model on a
+    (1, 2) mesh; each keeps its half of the WOL rows.  Each half is the
+    matching rows of the gathered WOL (the gather staged through the
+    host), and the index of each rank's own rows (``shard_index`` with
+    its shard range) runs ``lss_topk`` as its plain version does."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.serve.heads import shard_index
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _TRAIN_WORKER,
+                               str(tmp_path), str(r)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    z = [np.load(tmp_path / f"shard{r}.npz") for r in range(2)]
+    m, m_local = z[0]["full_w"].shape[0], z[0]["w"].shape[0]
+    assert (m, m_local, z[1]["w"].shape[0]) == (4099, 2050, 2049)
+    for r in range(2):
+        np.testing.assert_array_equal(z[r]["full_w"], z[0]["full_w"])
+        np.testing.assert_array_equal(
+            z[r]["w"], z[0]["full_w"][r * m_local:(r + 1) * m_local])
+    rng = np.random.default_rng(5)
+    theta = torch.from_numpy(rng.normal(size=(33, 8)).astype(
+        np.float32)).to(cuda)
+    q = augment_queries(torch.from_numpy(
+        rng.normal(size=(64, 32)).astype(np.float32))).to(cuda)
+    rows = margin_rows(q, theta)
+    for r in range(2):
+        w_aug = augment_neurons(torch.from_numpy(z[r]["w"]).to(cuda),
+                                torch.from_numpy(z[r]["b"]).to(cuda))
+        (idx,), _, ml = shard_index(w_aug, theta,
+                                    LSSConfig(k_bits=8, n_tables=1), 2,
+                                    shard_range=(r, r + 1), m_total=m)
+        assert ml == m_local
+        t = idx.tables
+        before = lss_topk_cuda.launches
+        got = lss_topk(q, theta, t.table_ids, idx.w_bucketed, top_k=5)
+        assert lss_topk_cuda.launches == before + 1
+        want = lss_topk_ref(q, theta, t.table_ids, idx.w_bucketed, top_k=5)
+        torch.cuda.synchronize()
+        assert_ints_equal(got[3], want[3], rows=rows, what="cand")
+        assert_close(got[0], want[0], rtol=1e-4, atol=1e-4, rows=rows,
+                     what="top_logits")
+        assert_topk_ids_equal(got[1], want[1], want[0], 1e-4, rows=rows,
+                              what="top_ids")
+        assert int(got[1].max()) < (m_local if r == 0 else m - m_local)

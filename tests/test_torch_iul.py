@@ -41,6 +41,16 @@ CFG = dict(k_bits=3, n_tables=2, iul_lr=0.02, iul_batch=16,
            iul_inner_steps=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    # fit_lss trains θ on the CPU: one intra-op thread, as the trainer tests pin it (eight
+    # OpenMP threads a worker under pytest -n 6 crawl)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_np(t) for t in tree)

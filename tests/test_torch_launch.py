@@ -5,8 +5,9 @@ JAX package's ``repro.launch.{serve,train}`` and ``repro.configs.
 at the reduced size (generate with both heads, streaming decode and async
 scoring with online index refresh), ``--mode decode`` on a fleet exits
 before any work (the fleets themselves run in test_torch_multihost.py),
-``launch.train``'s multi-GPU flags exit naming Queue 1 item 7b, and
-``launch.train`` trains and then resumes."""
+``launch.train``'s multi-GPU flags exit before any work where they
+describe no fleet (its sharded runs are in test_torch_sharded_train.py),
+and ``launch.train`` trains and then resumes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -186,8 +187,15 @@ def test_train_runs_then_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--devices", "8"], ["--mesh", "2x4"]])
 def test_train_multi_gpu_flags_exit(flags, monkeypatch):
+    # --devices without a mesh of as many ranks, and --mesh without its
+    # ranks (no --devices and no fleet variables), stop before any work
     monkeypatch.setattr(train, "lm_dataset", None)   # never reached
+    for var in ("REPRO_DIST_COORDINATOR", "REPRO_DIST_NUM_PROCESSES",
+                "REPRO_DIST_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as exc:
         train.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu"]
                    + flags)
-    assert "Queue 1 item 7b" in str(exc.value.code)
+    want = "--mesh DxM with D*M = 8" if flags[0] == "--devices" else \
+        "--mesh 2x4 needs its ranks"
+    assert want in str(exc.value.code)

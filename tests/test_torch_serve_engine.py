@@ -37,6 +37,16 @@ LOGIT_RTOL = LOGIT_ATOL = 1e-5
 TIE_TOL = 1e-5          # top ids exact where neighbours differ by more
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    # the example trains and decodes on the CPU: one intra-op thread, as the trainer tests pin it (eight
+    # OpenMP threads a worker under pytest -n 6 crawl)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _w(m, d, seed=0):
     return np.random.default_rng(seed).standard_normal((m, d)).astype(
         np.float32)

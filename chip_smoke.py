@@ -86,7 +86,25 @@ port's paths at Delicious-200K's full width (random weights from a seed):
   bit a one-process 2-shard oracle; and (after ``launch``)
   ``fleet_launch``: the serve launcher as a two-process fleet at full
   width (``--head lss-sharded --coordinator ... --process-id i``),
-  generate and async with refresh, and ``--mode decode`` refused.
+  generate and async with refresh, and ``--mode decode`` refused;
+* the rest of the model zoo (after the paper's experiments):
+  ``moe_decode``, qwen2-moe-a2.7b at full width and depth (24 layers,
+  d_model 2,048, 60 experts padded to 64, top-4, the shared expert;
+  random bf16 weights): ``LMDecoder.fit_lss`` on the 151,936-wide head
+  (K = 10, L = 1, P = 304), 8 prompts x 64 new tokens through blocking
+  ``generate`` and interleaved on the dense pool with both heads (tokens
+  bit for bit), the paged pool with shared prefixes (agreement
+  reported), ms a step beside the bound; ``arctic_decode``, arctic-480b
+  at full width cut to one layer (d_model 7,168, 128 experts top-2 with
+  the dense residual MLP in parallel, vocab 32,000): ``fit_lss`` at
+  K = 8 through the tiled ``simhash_codes``, interleaved sessions through
+  the wide ``lss_topk``; ``bert4rec_serve``, BERT4Rec's full config
+  (1,000,000 items) at 512 rows: encode, then the LSS top-10 through
+  ``lss_topk`` over the item head (K = 12, L = 1, P = 496), held against
+  the plain version, with the exact top-10's recall; ``zoo_step``:
+  DeepFM, AutoInt and DIEN at full width (512 rows) and the GCN at
+  full_graph_sm and molecule, a forward and a loss-and-gradient step
+  each.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after (``train_wol``: after each of its stages; the
@@ -136,7 +154,9 @@ sys.path.insert(0, str(ROOT / "src"))
 try:
     from repro_torch import obs, resolve_device
     from repro_torch.benchmarks import paper_tables
-    from repro_torch.configs import qwen2_0_5b
+    from repro_torch.configs import (arctic_480b, bert4rec, qwen2_0_5b,
+                                     qwen2_moe_a2_7b)
+    from repro_torch.configs.registry import get_config as get_arch
     from repro_torch.configs.paper_datasets import DELICIOUS
     from repro_torch.core.iul import (MinedPairs, fit_lss, iul_init,
                                       iul_loss_and_grad, mine_pairs)
@@ -154,7 +174,9 @@ try:
     from repro_torch.core.tables import build_tables, bucketize_weights
     from repro_torch.core.topk import NEG_INF, topk_lowest_index
     from repro_torch.data.pipeline import ShardedBatchIterator
-    from repro_torch.data.synthetic import lm_dataset, xc_dataset
+    from repro_torch.data.synthetic import (ctr_dataset, graph_dataset,
+                                            lm_dataset, seqrec_dataset,
+                                            xc_dataset)
     from repro_torch.distributed import (ServingMesh, init_distributed,
                                          make_serving_mesh,
                                          make_training_mesh,
@@ -186,6 +208,7 @@ try:
     from repro_torch.serve.step import release_graphs
     from repro_torch.serve.runtime import (submit_decode_open_loop,
                                            submit_open_loop)
+    from repro_torch.models import gnn, recsys
     from repro_torch.models import transformer as T
     from repro_torch.models import xc
     from repro_torch.models.xc import XCModel
@@ -201,7 +224,8 @@ try:
     from repro_torch.utils.sharding import (P, full_tensor, named_sharding,
                                             stages_gathers, to_local,
                                             use_mesh)
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import (tree_flatten, tree_leaves,
+                                        tree_unflatten)
     from tools.check_metrics import parse_exposition
 except ImportError as e:
     sys.exit(f"chip_smoke: {e} (run it from the repository root)")
@@ -270,6 +294,13 @@ SHARDED_LAUNCH_BATCH = 8   # at step 20 and trains to this step
 # decode: the full head's top logit against an fp32 GEMM of the same
 # hidden states (both fp32 GEMMs; scaled like LOGIT_ATOL)
 DECODE_FULL_TOL = 1e-5
+MOE_PROMPTS = 8            # moe_decode: prompts 4-11 of decode_prompts
+MOE_NEW = 64               # moe_decode: new tokens a session
+ARCTIC_LAYERS = 1          # arctic_decode: 35 layers do not fit one card
+ARCTIC_PROMPTS = 4         # arctic_decode: sessions
+ARCTIC_NEW = 16            # arctic_decode: new tokens a session
+ZOO_BATCH = 512            # serve_p99's batch (bert4rec_serve, zoo_step)
+BERT4REC_TOP_K = 10
 
 
 class SmokeFailure(AssertionError):
@@ -2564,7 +2595,7 @@ def decode_bounds(dec, lengths_mean):
     occupied rows at most)."""
     cfg, t = dec.cfg, dec.index.tables
     body = sum(a.numel() * a.element_size()
-               for a in dec.params["layers"].values())
+               for a in tree_leaves(dec.params["layers"]))
     kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
     kv = DECODE_STREAMS * lengths_mean * kv_token
     full = dec.engine.w.numel() * 4
@@ -2601,7 +2632,8 @@ def decode_runtime(dec, head, prompts, qps):
     return toks, stats
 
 
-def check_decode_step(dec, head, prompts, blocking, counters, smi):
+def check_decode_step(dec, head, prompts, blocking, counters, smi,
+                      new_tokens=DECODE_NEW):
     """Outside the counts, on ``DECODE_STREAMS`` sessions mid-flight: one
     replayed step against the eager step on copies of its inputs (the
     same bits), its head against ``lss_forward`` (the same bits) or an
@@ -2610,7 +2642,7 @@ def check_decode_step(dec, head, prompts, blocking, counters, smi):
     their end and must give their blocking tokens."""
     sched = dec.scheduler(head=head)
     step_rows = prompts[:DECODE_STREAMS]
-    streams = [sched.submit(p, max_new_tokens=DECODE_NEW) for p in step_rows]
+    streams = [sched.submit(p, max_new_tokens=new_tokens) for p in step_rows]
     with uncounted(counters):
         for _ in range(3):
             sched.tick()
@@ -2672,14 +2704,22 @@ def check_decode_step(dec, head, prompts, blocking, counters, smi):
 def decode_kernels(index, q, q_calib, smi):
     """``lss_topk`` at the decode step's shapes (``q``: the hidden states
     of ``DECODE_STREAMS`` rows), B = 8 and B = 1, against its plain
-    version, timed beside its bound, with its shared-memory layout; and
-    ``simhash_codes`` at ``fit_lss``'s mining batch (256 calibration
-    queries ``q_calib``, d = 897, K = 10, L = 1), the same way."""
+    version, timed beside its bound, with its shared-memory layout
+    (narrow or wide); and ``simhash_codes`` at ``fit_lss``'s mining batch
+    (256 calibration queries ``q_calib`` at the head's d, K and L; whole
+    or in d-tiles), the same way."""
     t = index.tables
     q_aug = augment_queries(q.float())
     d = q_aug.shape[1]
-    lay = lss_topk_ops.lss_topk_layout(d, t.k_bits, t.n_tables, t.capacity)
+    shape = (d, t.k_bits, t.n_tables, t.capacity)
+    lay = lss_topk_ops.lss_topk_layout(*shape)
+    lib = lss_topk_ops._library()
+    require(lay.smem == lib.lss_topk_smem_bytes(*shape, 0)
+            and lay.scratch == lib.lss_topk_scratch_bytes(*shape, 0)
+            and lay.wide == bool(lib.lss_topk_wide(*shape, 0)),
+            "smem, scratch or wide formula drifted")
     out = {"d_aug": d, "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+           "layout": "wide" if lay.wide else "narrow",
            "smem_bytes": lay.smem, "scratch_bytes": lay.scratch,
            "rows_per_chunk": lay.rows,
            "blocks_per_sm": lss_topk_ops.lss_topk_blocks_per_sm(
@@ -2701,6 +2741,8 @@ def decode_kernels(index, q, q_calib, smi):
     s_b, s_by, _, _ = simhash_bound_ms(256, d, t.k_bits, t.n_tables)
     return {"lss_topk": out, "simhash_codes": {
         "B": 256, "d_aug": d, "K": t.k_bits, "L": t.n_tables,
+        "d_tile": simhash_codes_plan(256, d, t.k_bits, t.n_tables,
+                                     _build.sm_count(q.device)).tile,
         "max_abs_err": s_err, "ms": time_ms(lambda: simhash_codes(*code_args)),
         "plain_ms": time_ms(lambda: simhash_codes_ref(*code_args)),
         "bound_ms": s_b, "bound_by": s_by, "device": smi}}
@@ -2871,6 +2913,493 @@ def phase_decode(dev, smi, counters):
     return launches, device_launches, {
         "dense": dense, "params": params, "prompts": prompts,
         "blocking": blocking, "hidden": hidden[0]}
+
+
+# ------------------------------------------------------------ model zoo --
+
+def lss_builds(dec):
+    """LSS steps the decoder's engine has built (warm-up + capture each)."""
+    return sum(n for (kind, _), n in dec.engine.compile_counts.items()
+               if kind == "lss")
+
+
+def param_bytes(params):
+    return sum(a.numel() * a.element_size() for a in tree_leaves(params))
+
+
+def zoo_lm_decode(dev, smi, counters, spec, cfg, prompts, new_tokens,
+                  what):
+    """An LM of the zoo at full width (random bf16 weights, seed 0):
+    ``LMDecoder.fit_lss`` on its head (``simhash_codes``; the arch's K and
+    L, ``DECODE_CALIB`` positions), ``prompts`` through blocking
+    ``generate`` one at a time (dense KV) with both heads, then the same
+    sessions interleaved on the same pool, whose tokens must equal the
+    blocking ones bit for bit; the interleaved LSS run under
+    ``torch.profiler``, which must see one ``lss_topk`` kernel a replayed
+    step and a first-token rank.  That is the counted run.  Returns the
+    decoder, its blocking tokens and what it measured."""
+    lss_cfg = spec.lss._replace(iul_epochs=DECODE_IUL_EPOCHS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(dev).manual_seed(SEED), cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    setup = {"init_seconds": time.perf_counter() - t0,
+             "param_bytes": param_bytes(params),
+             "expert_bytes": param_bytes(params["layers"].get("moe", {})),
+             "allocated_mb": torch.cuda.memory_allocated() / 2 ** 20}
+    calib = lm_dataset(SEED, DECODE_CALIB[0] * DECODE_CALIB[1], cfg.vocab,
+                       DECODE_CALIB[1])
+    dense = LMDecoder(params, cfg, lss_cfg, max_streams=DECODE_STREAMS,
+                      max_len=DECODE_MAX_LEN, kv_layout="dense")
+    del params
+
+    reset(counters)
+    t0 = time.perf_counter()
+    hist = dense.fit_lss(torch.Generator(dev).manual_seed(SEED + 1), calib)
+    torch.cuda.synchronize()
+    seconds = {"fit_lss": time.perf_counter() - t0}
+    t = dense.index.tables
+    want = (spec.lss.k_bits, spec.lss.n_tables,
+            spec.lss.resolve_capacity(cfg.vocab))
+    require((t.k_bits, t.n_tables, t.capacity) == want,
+            f"{what}: index K, L, P = {t.k_bits}, {t.n_tables}, "
+            f"{t.capacity}, not {want}")
+    blocking = {}
+    for head in ("full", "lss"):
+        t0 = time.perf_counter()
+        blocking[head] = [
+            dense.generate(p[None], steps=new_tokens, head=head,
+                           timeout=600.0).numpy()[0] for p in prompts]
+        seconds[f"blocking_{head}"] = time.perf_counter() - t0
+        toks = np.stack(blocking[head])
+        require(toks.shape == (len(prompts), new_tokens)
+                and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+                f"{what} {head}: tokens out of range")
+    from torch.profiler import ProfilerActivity, profile
+    inter = {}
+    for head in ("full", "lss"):
+        sched = dense.scheduler(head=head)
+        sched.reset_stats()
+        builds0 = lss_builds(dense)
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if head == "lss" else contextlib.nullcontext()) as prof:
+            toks = run_sessions(sched, prompts, new_tokens)
+            torch.cuda.synchronize()
+        seconds[f"interleaved_{head}"] = time.perf_counter() - t0
+        inter[head] = sched.stats()._asdict()
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(toks, blocking[head])),
+                f"{what} {head}: interleaved tokens differ from blocking")
+    s = inter["lss"]
+    device_launches = device_kernel_count(prof, "lss_topk")
+    del prof
+    ranked = s["n_sessions"] - s["n_prefill_skipped"]
+    builds = lss_builds(dense) - builds0
+    require(device_launches == s["n_steps"] + ranked + builds,
+            f"{what}: the profiler saw {device_launches} lss_topk kernels "
+            f"in the interleaved LSS run for {s['n_steps']} steps, {ranked} "
+            f"first-token ranks and {builds} warm-ups")
+    launches = read(counters)
+    require(launches["simhash_codes_cuda"] > 0,
+            f"{what}: simhash_codes was not launched in fit_lss")
+    require(launches["lss_topk_cuda"] > 0,
+            f"{what}: lss_topk was not launched")
+    require(launches["bucket_logits_cuda"] == 0,
+            f"{what}: bucket_logits was launched")
+    emit({"phase": what, "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "experts": cfg.n_experts_padded, "top_k": cfg.moe_top_k,
+          "moe_style": cfg.moe_style, **setup,
+          "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+          "n_dropped": int(t.n_dropped.sum()),
+          "calib_recall": hist["recall"], "prompts": len(prompts),
+          "prompt_lengths": [len(p) for p in prompts],
+          "new_tokens": new_tokens, "streams": DECODE_STREAMS,
+          "seconds": seconds, "launches": launches,
+          "profiler": {"lss_topk_kernels": device_launches,
+                       "steps": s["n_steps"], "first_token_ranks": ranked,
+                       "warm_ups": builds},
+          "tokens": "interleaved = blocking, bit for bit, both heads",
+          "top1_agreement_lss_vs_full": float(np.mean(
+              np.stack(blocking["lss"]) == np.stack(blocking["full"]))),
+          "interleaved": inter, "device": smi})
+    return dense, blocking, launches, device_launches
+
+
+def zoo_decode_timing(dense, prompts, blocking, counters, smi, new_tokens,
+                      heads, what, t_phase):
+    """Outside the counts: the replayed step against the eager step and
+    its head against ``lss_forward`` / an fp32 GEMM (check_decode_step),
+    ms a step beside the byte bounds, ``lss_topk`` and ``simhash_codes``
+    at the head's width against their plain versions (decode_kernels),
+    and the peak memory of the phase."""
+    checks, hidden = zip(*(check_decode_step(dense, head, prompts,
+                                             blocking[head], counters, smi,
+                                             new_tokens=new_tokens)
+                           for head in heads))
+    with uncounted(counters):
+        kernels = decode_kernels(dense.index, hidden[0],
+                                 dense.engine.calib[0], smi)
+    bounds = decode_bounds(dense, float(np.mean(
+        [c["mean_length"] for c in checks])))
+    emit({"phase": f"{what}_timing",
+          "what": "host-clock ms of one fused step over 8 rows, "
+                  "synchronised (median of 20 replays, 5 eager runs), "
+                  "beside the byte bounds at 3.35 TB/s (every padded "
+                  "expert's weights are read each step)",
+          "steps": checks, "bounds": bounds, **kernels,
+          "peak_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+          **mem_mb(), "seconds": time.perf_counter() - t_phase,
+          "device": smi})
+    return kernels
+
+
+def phase_moe_decode(dev, smi, counters):
+    """qwen2-moe-a2.7b at full width and depth (24 layers, d_model 2,048,
+    64 padded experts top-4 + the shared expert, random bf16 weights):
+    the counted run of :func:`zoo_lm_decode` on prompts 4-11 of
+    ``decode_prompts`` (8 x ``MOE_NEW`` tokens), the 151,936-wide head
+    served by ``lss_topk`` (K = 10, L = 1, P = 304).  At 8 slots no expert
+    gets more tokens than its capacity max(8, ...), so decode drops
+    nothing and interleaving cannot change a token.  Then, outside the
+    counts: the same prompts through the paged pool, where prompts 8-11
+    share two cached pages with 4-7 and prefill only their suffix (a
+    prefill drops tokens by the prompt's own length, so that run may
+    differ: its agreement is reported, not required), and the timings."""
+    t_phase = time.perf_counter()
+    spec = qwen2_moe_a2_7b.CONFIG
+    cfg = spec.model_cfg
+    prompts = decode_prompts(cfg.vocab)[4:4 + MOE_PROMPTS]
+    dense, blocking, launches, device_launches = zoo_lm_decode(
+        dev, smi, counters, spec, cfg, prompts, MOE_NEW, "moe_decode")
+    require((cfg.n_layers, cfg.d_model) == (24, 2048),
+            "moe_decode: not qwen2-moe-a2.7b's full width and depth")
+    with uncounted(counters):
+        paged = LMDecoder(dense.params, cfg, dense.lss_cfg,
+                          max_streams=DECODE_STREAMS, max_len=DECODE_MAX_LEN,
+                          kv_layout="paged")
+        paged.engine._set_index(dense.index)
+        sched = paged.scheduler(head="lss")
+        t0 = time.perf_counter()
+        toks = run_sessions(sched, prompts, MOE_NEW)
+        torch.cuda.synchronize()
+        ps = sched.stats()
+        del sched, paged
+        gc.collect()
+    same = [np.array_equal(a, b) for a, b in zip(toks, blocking["lss"])]
+    emit({"phase": "moe_decode_paged", "seconds": time.perf_counter() - t0,
+          "prefill_skipped": ps.n_prefill_skipped,
+          "prefix_hit_rate": ps.prefix_hit_rate,
+          "sessions_equal_to_blocking": int(sum(same)),
+          "sessions": len(same),
+          "token_agreement": float(np.mean(
+              np.stack(toks) == np.stack(blocking["lss"]))),
+          "note": "suffix-only prefill routes a different token set "
+                  "through capacity-limited experts; reported, not "
+                  "required", "device": smi})
+    kernels = zoo_decode_timing(dense, prompts, blocking, counters, smi,
+                                MOE_NEW, ("lss", "full"), "moe_decode",
+                                t_phase)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "device": device_launches,
+            "kernels": kernels}
+
+
+def phase_arctic_decode(dev, smi, counters):
+    """arctic-480b at full width (d_model 7,168, 128 experts top-2 with
+    the dense residual MLP in parallel, vocab 32,000) cut to
+    ``ARCTIC_LAYERS`` layer (one layer is 27.2 GB in bf16; 35 do not fit
+    one card): the counted run of :func:`zoo_lm_decode` (``fit_lss`` at
+    K = 8 through the tiled ``simhash_codes``, ``ARCTIC_PROMPTS``
+    interleaved sessions through the wide ``lss_topk``), then
+    ``lss_topk`` and ``simhash_codes`` against their plain versions at
+    d = 7,169."""
+    t_phase = time.perf_counter()
+    spec = arctic_480b.CONFIG
+    cfg = spec.model_cfg._replace(n_layers=ARCTIC_LAYERS)
+    prompts = decode_prompts(cfg.vocab)[:ARCTIC_PROMPTS]
+    dense, blocking, launches, device_launches = zoo_lm_decode(
+        dev, smi, counters, spec, cfg, prompts, ARCTIC_NEW, "arctic_decode")
+    kernels = zoo_decode_timing(dense, prompts, blocking, counters, smi,
+                                ARCTIC_NEW, ("lss",), "arctic_decode",
+                                t_phase)
+    require(kernels["lss_topk"]["layout"] == "wide"
+            and kernels["simhash_codes"]["d_tile"] > 0,
+            "arctic_decode: the kernels did not take their wide layouts")
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "device": device_launches,
+            "kernels": kernels, "cut": {"n_layers": (35, ARCTIC_LAYERS)}}
+
+
+def phase_bert4rec_serve(dev, smi, counters):
+    """BERT4Rec at its full config (1,000,000 items, d = 64, 2 blocks,
+    seq_len 200; random weights, seed 0) at serve_p99's batch of 512:
+    ``bert4rec_encode``, the last position's hidden, then the LSS top-10
+    through ``lss_topk`` (``lss_forward``) over an index of the augmented
+    item head (K = 12, L = 1, P = 496, random hyperplanes): the one-shard
+    case of the JAX package's serve cell.  The counted run is that path;
+    then ``lss_topk`` against its plain version on the same queries, the
+    exact full-head top-10 recall (reported), and timings."""
+    t_phase = time.perf_counter()
+    spec = bert4rec.CONFIG
+    cfg = spec.model_cfg
+    gen = torch.Generator(dev).manual_seed(SEED)
+    params = recsys.init_bert4rec(gen, cfg, device=dev)
+    w_aug = augment_neurons(params["head"])
+    theta = init_hyperplanes(gen, cfg.embed_dim + 1, spec.lss.k_bits,
+                             spec.lss.n_tables, device=dev)
+    index = build_index(w_aug, theta, spec.lss)
+    t = index.tables
+    require((t.k_bits, t.n_tables, t.capacity) == (12, 1, 496),
+            f"bert4rec_serve: index K, L, P = {t.k_bits}, {t.n_tables}, "
+            f"{t.capacity}, not 12, 1, 496")
+    seq = torch.from_numpy(seqrec_dataset(SEED, ZOO_BATCH, cfg.seq_len,
+                                          cfg.n_items)[0]).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+
+    def serve():
+        hidden = recsys.bert4rec_encode(params, seq, cfg)
+        q = hidden[:, -1].float()
+        return q, lss_forward(q, index, None, BERT4REC_TOP_K)
+
+    reset(counters)
+    t0 = time.perf_counter()
+    q, res = serve()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read(counters)
+    require(launches["lss_topk_cuda"] > 0,
+            "bert4rec_serve: lss_topk was not launched")
+    require(launches["bucket_logits_cuda"] == 0,
+            "bert4rec_serve: bucket_logits was launched")
+    ids = res.top_ids
+    require(tuple(ids.shape) == (ZOO_BATCH, BERT4REC_TOP_K)
+            and bool(((ids >= -1) & (ids < cfg.n_items)).all())
+            and bool(torch.isfinite(q).all()),
+            "bert4rec_serve: top ids out of shape or range")
+    with uncounted(counters):
+        q_aug = augment_queries(q)
+        args = (q_aug, index.theta, t.table_ids, index.w_bucketed)
+        rows, check, got = compare_lss_topk(*args, index.w_scale,
+                                            BERT4REC_TOP_K, chunk=128)
+        require(same_tensor_bits(got[1], ids)
+                and same_tensor_bits(got[0], res.top_logits),
+                "bert4rec_serve: the path's top-10 differs from the "
+                "kernel's on the same queries")
+        full = recsys.retrieval_scores(params, q)
+        exact = torch.topk(full, BERT4REC_TOP_K).indices
+        del full
+        hit = (ids[:, :, None] == exact[:, None, :]).any(-1).float()
+        b_ms, b_by, nbytes, _ = lss_topk_bound_ms(q_aug, index, got[3],
+                                                  BERT4REC_TOP_K)
+        kernel = {"B": ZOO_BATCH, "d_aug": q_aug.shape[1], "K": t.k_bits,
+                  "L": t.n_tables, "P": t.capacity,
+                  "layout": "wide" if lss_topk_ops.lss_topk_layout(
+                      q_aug.shape[1], t.k_bits, t.n_tables,
+                      t.capacity).wide else "narrow",
+                  "ms": time_ms(lambda: lss_topk(*args,
+                                                 top_k=BERT4REC_TOP_K)),
+                  "plain_ms": time_ms(lambda: lss_topk_ref(
+                      *args, top_k=BERT4REC_TOP_K), iters=5),
+                  "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+                  **check}
+        timing = {
+            "encode_ms": host_ms(lambda: recsys.bert4rec_encode(
+                params, seq, cfg), iters=5),
+            "lss_forward_ms": host_ms(lambda: lss_forward(
+                q, index, None, BERT4REC_TOP_K)),
+            "full_head_topk_ms": host_ms(lambda: torch.topk(
+                recsys.retrieval_scores(params, q), BERT4REC_TOP_K),
+                iters=5)}
+    emit({"phase": "bert4rec_serve", "items": cfg.n_items,
+          "d": cfg.embed_dim, "blocks": cfg.n_blocks,
+          "seq_len": cfg.seq_len, "batch": ZOO_BATCH,
+          "K": t.k_bits, "L": t.n_tables, "P": t.capacity,
+          "n_dropped": int(t.n_dropped.sum()),
+          "setup_seconds": setup_s, "serve_seconds": serve_s,
+          "launches": launches, "margin_rows": int(rows.sum()),
+          "mean_sample_size": float(res.sample_size.float().mean()),
+          "full_head_top10_recall": float(hit.mean()),
+          "lss_topk": kernel, **timing,
+          "peak_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    del params, index, w_aug
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kernel": kernel}
+
+
+def ctr_batch(cfg):
+    """serve_p99's 512 rows for a CTR model: ``ctr_dataset``'s zipf ids
+    and planted labels (DeepFM, AutoInt), or DIEN's histories (zipf item
+    ids, a padded tail of random length) and targets."""
+    if cfg.kind != "dien":
+        ids, labels = ctr_dataset(SEED, ZOO_BATCH, cfg.n_fields,
+                                  cfg.vocab_per_field)
+        return {"ids": ids, "labels": labels}
+    rng = np.random.default_rng(SEED)
+    hist = (rng.zipf(1.2, (ZOO_BATCH, cfg.seq_len)) - 1) % cfg.vocab_per_field
+    hist[np.arange(cfg.seq_len)[None] >= rng.integers(
+        10, cfg.seq_len + 1, ZOO_BATCH)[:, None]] = -1
+    return {"hist": hist.astype(np.int32),
+            "target": ((rng.zipf(1.2, ZOO_BATCH) - 1)
+                       % cfg.vocab_per_field).astype(np.int32),
+            "labels": (rng.random(ZOO_BATCH) < 0.3).astype(np.int32)}
+
+
+def ctr_logits(params, batch, cfg):
+    if cfg.kind == "deepfm":
+        return recsys.deepfm_logits(params, batch["ids"], cfg)
+    if cfg.kind == "autoint":
+        return recsys.autoint_logits(params, batch["ids"], cfg)
+    return recsys.dien_logits(params, batch, cfg)
+
+
+def ctr_loss(params, batch, cfg):
+    """The JAX package's CTR loss (its train cells' ``_ctr_loss``)."""
+    lg = ctr_logits(params, batch, cfg)
+    y = batch["labels"].float()
+    return torch.mean(lg.clamp(min=0) - lg * y
+                      + torch.log1p(torch.exp(-lg.abs())))
+
+
+def zoo_step_one(name, params, forward, loss_fn, out_shape, smi):
+    """One forward and one loss-and-gradient step: finite, the forward's
+    shape, a finite gradient of every parameter's shape; host ms of each
+    (synchronised), peak memory."""
+    leaves, treedef = tree_flatten(params)
+    out = forward(params)
+    require(tuple(out.shape) == out_shape and bool(torch.isfinite(out).all()),
+            f"zoo_step {name}: forward gave {tuple(out.shape)}, not "
+            f"{out_shape}, or a non-finite value")
+
+    def step():
+        with torch.enable_grad():
+            live = [a.detach().requires_grad_(True) for a in leaves]
+            loss = loss_fn(tree_unflatten(treedef, live))
+            return loss, torch.autograd.grad(loss, live)
+
+    loss, grads = step()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(loss))
+            and all(g.shape == a.shape and bool(torch.isfinite(g).all())
+                    for g, a in zip(grads, leaves)),
+            f"zoo_step {name}: a non-finite loss or gradient")
+    del grads
+    return {"model": name, "out_shape": list(out_shape),
+            "loss": float(loss), "param_bytes": param_bytes(params),
+            "forward_ms": host_ms(lambda: forward(params), iters=5),
+            "step_ms": host_ms(step, iters=3), "device": smi}
+
+
+def phase_zoo_step(dev, smi):
+    """DeepFM, AutoInt and DIEN at their full configs (39 x 1M-row tables,
+    DIEN's 2M items) at serve_p99's 512 rows, and the GCN at full_graph_sm
+    (2,708 nodes, 10,556 edges, 1,433 features: ``graph_dataset``) and at
+    molecule (128 graphs of 30 nodes, 64 edges, 32 features, a mean-pool
+    readout): one forward and one loss-and-gradient step each (the JAX
+    package's losses: its CTR train cells' logistic loss, ``gnn.loss``,
+    ``gnn.molecule_loss``), finite, with the reference's shapes."""
+    t_phase = time.perf_counter()
+    rows = []
+    for arch in ("deepfm", "autoint", "dien"):
+        cfg = get_arch(arch).model_cfg
+        init = {"deepfm": recsys.init_deepfm, "autoint": recsys.init_autoint,
+                "dien": recsys.init_dien}[arch]
+        torch.cuda.reset_peak_memory_stats()
+        params = init(torch.Generator(dev).manual_seed(SEED), cfg,
+                      device=dev)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ctr_batch(cfg).items()}
+        rows.append(zoo_step_one(
+            arch, params, lambda p: ctr_logits(p, batch, cfg),
+            lambda p: ctr_loss(p, batch, cfg), (ZOO_BATCH,), smi))
+        rows[-1]["peak_allocated_mb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+        del params, batch
+    spec = get_arch("gcn-cora")
+    sm = spec.shape("full_graph_sm").dims
+    cfg = spec.model_cfg._replace(d_feat=sm["d_feat"],
+                                  n_classes=sm["n_classes"])
+    g = graph_dataset(SEED, sm["n_nodes"], sm["n_edges"], sm["d_feat"],
+                      sm["n_classes"])
+    batch = {"x": torch.from_numpy(g["x"]).to(dev),
+             "edges": torch.from_numpy(g["edges"]).to(dev),
+             "labels": torch.from_numpy(g["train_labels"]).to(dev)}
+    params = gnn.init_params(torch.Generator(dev).manual_seed(SEED), cfg,
+                             device=dev)
+    rows.append(zoo_step_one(
+        "gcn-cora/full_graph_sm", params,
+        lambda p: gnn.forward(p, batch["x"], batch["edges"], cfg),
+        lambda p: gnn.loss(p, batch, cfg),
+        (sm["n_nodes"], sm["n_classes"]), smi))
+    mol = spec.shape("molecule").dims
+    cfg = spec.model_cfg._replace(d_feat=mol["d_feat"],
+                                  n_classes=mol["n_classes"],
+                                  readout="mean")
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+        "x": rng.standard_normal((mol["batch"], mol["n_nodes"],
+                                  mol["d_feat"])).astype(np.float32),
+        "edges": rng.integers(0, mol["n_nodes"], (mol["batch"],
+                                                  mol["n_edges"], 2)
+                              ).astype(np.int32),
+        "labels": rng.integers(0, mol["n_classes"], mol["batch"]
+                               ).astype(np.int32)}.items()}
+    params = gnn.init_params(torch.Generator(dev).manual_seed(SEED), cfg,
+                             device=dev)
+    rows.append(zoo_step_one(
+        "gcn-cora/molecule", params,
+        lambda p: torch.stack([gnn.forward(p, x, e, cfg) for x, e in
+                               zip(batch["x"], batch["edges"])]),
+        lambda p: gnn.molecule_loss(p, batch, cfg),
+        (mol["batch"], mol["n_classes"]), smi))
+    emit({"phase": "zoo_step", "batch": ZOO_BATCH, "models": rows,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    torch.cuda.empty_cache()
+
+
+def zoo_kernel_entries(moe, arctic, bert):
+    """``lss_topk`` and ``simhash_codes`` at the zoo's widths, in the
+    kernels line's form, each with its path's launches and layout."""
+    base = {"lss_topk": {"source": "src/repro_torch/csrc/lss_topk.cu",
+                         "replaces": "src/repro/kernels/lss_topk/kernel.py:301"},
+            "simhash_codes": {
+                "source": "src/repro_torch/csrc/simhash_codes.cu",
+                "replaces": "src/repro/kernels/simhash_codes/kernel.py:55"}}
+    out = []
+
+    def entry(name, path, launches, k, shape):
+        return {"name": name, "route": "cuda", **base[name],
+                "launches": launches, "max_abs_err": k["max_abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None, "path": path, "shape": shape}
+
+    for path, res in (("moe_decode", moe), ("arctic_decode", arctic)):
+        lt, sc = res["kernels"]["lss_topk"], res["kernels"]["simhash_codes"]
+        shape = {"d_aug": lt["d_aug"], "K": lt["K"], "L": lt["L"],
+                 "P": lt["P"]}
+        out.append(entry("lss_topk", path, res["device"], lt["B8"],
+                         {**shape, "B": DECODE_STREAMS,
+                          "layout": lt["layout"]}))
+        out.append(entry("simhash_codes", path,
+                         res["launches"]["simhash_codes_cuda"], sc,
+                         {**shape, "B": sc["B"], "d_tile": sc["d_tile"]}))
+    k = bert["kernel"]
+    out.append(entry("lss_topk", "bert4rec_serve",
+                     bert["launches"]["lss_topk_cuda"], k,
+                     {key: k[key] for key in ("B", "d_aug", "K", "L", "P",
+                                              "layout")}))
+    return out
 
 
 # ------------------------------------------------------- online refresh --
@@ -3638,6 +4167,21 @@ def main() -> int:
     phase_paper_table1(dev, smi, counters)
     phase_paper_table2(dev, smi, counters)
     phase_paper_fig2(dev, counters)
+    # the rest of the model zoo
+    moe = phase_moe_decode(dev, smi, counters)
+    arctic = phase_arctic_decode(dev, smi, counters)
+    bert = phase_bert4rec_serve(dev, smi, counters)
+    phase_zoo_step(dev, smi)
+    for entry, name in zip(line["kernels"][:2], ("simhash_codes_cuda",
+                                                  "lss_topk_cuda")):
+        entry["launches_by_path"].update(
+            moe_decode=moe["launches"][name],
+            arctic_decode=arctic["launches"][name],
+            bert4rec_serve=bert["launches"][name])
+    line["kernels"][1]["launches_by_path"].update(
+        moe_decode_profiler=moe["device"],
+        arctic_decode_profiler=arctic["device"])
+    line["kernels"].extend(zoo_kernel_entries(moe, arctic, bert))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(line)
     print(smi, flush=True)

@@ -69,12 +69,11 @@ def transformer_params_from_numpy(params: dict, cfg: TransformerConfig,
                                   ) -> dict:
     """The JAX ``transformer.init_params`` tree (``embed``, ``layers`` with
     stacked ``[n_layers, ...]`` leaves, ``final_norm``, ``lm_head`` when
-    untied) as the port's: the same names, nesting and dtypes (bf16 by its
-    bits), each array a tensor on ``device``."""
-    if cfg.moe_style != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE parameters come with the rest of the model "
-            f"zoo (ROADMAP Queue 1 item 8)")
+    untied; for the MoE styles ``layers.moe.{router,w_gate,w_up,w_down}``
+    and the shared expert's ``sh_*``) as the port's: the same names,
+    nesting and dtypes (bf16 by its bits), each array a tensor on
+    ``device``.  The embedding and every MoE leaf are checked against
+    ``cfg``'s shapes."""
     want = (cfg.vocab, cfg.d_model)
     if tuple(np.shape(params["embed"])) != want:
         raise ValueError(f"embed {np.shape(params['embed'])} != {want} of "
@@ -82,6 +81,32 @@ def transformer_params_from_numpy(params: dict, cfg: TransformerConfig,
     if ("lm_head" in params) == cfg.tie_embeddings:
         raise ValueError(f"{cfg.name}: lm_head must be present iff the "
                          f"embeddings are untied")
+    lyr = params["layers"]
+    if ("moe" in lyr) != (cfg.moe_style != "none"):
+        raise ValueError(f"{cfg.name}: layers.moe must be present iff "
+                         f"moe_style != 'none' (it is {cfg.moe_style!r})")
+    n, d = cfg.n_layers, cfg.d_model
+    shapes = {}
+    if cfg.moe_style != "none":
+        ep, f = cfg.n_experts_padded, cfg.moe_d_ff
+        shapes.update({("moe", "router"): (n, d, ep),
+                       ("moe", "w_gate"): (n, ep, d, f),
+                       ("moe", "w_up"): (n, ep, d, f),
+                       ("moe", "w_down"): (n, ep, f, d)})
+    if cfg.shared_expert_ff:
+        sf = cfg.shared_expert_ff
+        shapes.update({("sh_gate",): (n, d, sf), ("sh_up",): (n, d, sf),
+                       ("sh_down",): (n, sf, d), ("sh_gate_w",): (n, d, 1)})
+    for path, shape in shapes.items():
+        node = lyr
+        for key in path:
+            if key not in node:
+                raise ValueError(f"{cfg.name}: layers.{'.'.join(path)} is "
+                                 f"missing")
+            node = node[key]
+        if tuple(np.shape(node)) != shape:
+            raise ValueError(f"{cfg.name}: layers.{'.'.join(path)} "
+                             f"{np.shape(node)} != {shape}")
     dev = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, dev), params)
 

@@ -47,6 +47,16 @@
 //     scale, the op of dequantize_int8_rows), so they copy 2x and ~4x
 //     fewer bytes.
 //
+// The wide layout (kWide), for an LM head's width: where q, q/|q|, theta
+// and the rings do not fit in the 232,448 B of a block (qwen3-4b's
+// d = 2,561 in fp32: 288 KB; arctic-480b's d = 7,169: theta alone is
+// 229 KB), the block keeps one fp32 copy of q and the small arrays only.
+// Stage 1 reads theta from global memory (the same for every block, so
+// it stays in L2) and divides each q element by |q| as it is read, which
+// gives the bits of the narrow layout; stage 3 reads each 8-row chunk's
+// rows straight from global memory, 16 elements a lane in flight per row,
+// with no ring.  Where the narrow layout fits, it is used, unchanged.
+//
 // Stages (each begins after a __syncthreads()):
 //   1. load q_aug and theta, normalise q exactly as kernel.py does
 //      (q / max(sqrt(sum q^2), 1e-12)) and hash it (simhash.cuh, a warp
@@ -82,6 +92,7 @@ static_assert(kRowsAtOnce == 8, "warp_sum8 reduces 8 rows");
 constexpr int kIdBatch = 8;               // id loads a thread keeps in flight
 constexpr int kWarpChunkBytes = 4224;     // slab bytes of one warp's chunk
 constexpr int kWarpStages = 2;            // a warp's chunks in its ring
+constexpr int kWideLoads = 16;            // wide layout: row loads in flight
 constexpr int kSmemLimit = 232448;        // shared memory an H100 block can use
 constexpr float kNegInf = -1e30f;         // repro.core.lss.NEG_INF
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -109,11 +120,13 @@ struct Layout {
   bool slot_in_smem;
   long long smem;        // dynamic shared memory
   long long scratch;     // per-query scratch bytes (0: all in smem)
+  bool wide;             // theta and rows from global memory, no ring
 };
 
-__host__ __device__ inline Layout make_layout(int d, int k_bits,
-                                              int n_tables, int cap,
-                                              int itemsize, bool scaled) {
+// The narrow layout: q, q/|q|, theta and the rings in shared memory.
+__host__ __device__ inline Layout narrow_layout(int d, int k_bits,
+                                                int n_tables, int cap,
+                                                int itemsize, bool scaled) {
   Layout l;
   l.c = n_tables * cap;
   const int row_bytes = d * itemsize;
@@ -134,6 +147,28 @@ __host__ __device__ inline Layout make_layout(int d, int k_bits,
   l.slot = align16(4LL * l.c * (scaled ? 3 : 2) + 4LL * l.hash);
   l.slot_in_smem = l.ring + l.vec + l.slot <= kSmemLimit;
   l.smem = l.ring + l.vec + (l.slot_in_smem ? l.slot : 0);
+  l.scratch = l.slot_in_smem ? 0 : l.slot;
+  l.wide = false;
+  return l;
+}
+
+// The layout of these shapes: the narrow one where q, q/|q|, theta and
+// the rings fit in a block, else the wide one.
+__host__ __device__ inline Layout make_layout(int d, int k_bits,
+                                              int n_tables, int cap,
+                                              int itemsize, bool scaled) {
+  Layout l = narrow_layout(d, k_bits, n_tables, cap, itemsize, scaled);
+  if (l.ring + l.vec <= kSmemLimit) return l;
+  // q [d] | reduce [2][2*kWarps] | slab, span [L] | bits [KL] | count
+  const long long kl = static_cast<long long>(k_bits) * n_tables;
+  l.wide = true;
+  l.rows = kRowsAtOnce;
+  l.stage = 0;
+  l.ring = 0;
+  l.vec = align16(4 * (static_cast<long long>(d) + 4 * kWarps +
+                       2LL * n_tables + kl + 1));
+  l.slot_in_smem = l.vec + l.slot <= kSmemLimit;
+  l.smem = l.vec + (l.slot_in_smem ? l.slot : 0);
   l.scratch = l.slot_in_smem ? 0 : l.slot;
   return l;
 }
@@ -241,7 +276,7 @@ struct Chunk {
   }
 };
 
-template <typename T, bool kSlotSmem>
+template <typename T, bool kSlotSmem, bool kWide>
 __global__ void __launch_bounds__(kThreads) lss_topk_kernel(
     const float* __restrict__ q_aug, const float* __restrict__ theta,
     const int* __restrict__ tids, const T* __restrict__ w,
@@ -251,16 +286,19 @@ __global__ void __launch_bounds__(kThreads) lss_topk_kernel(
     int k_bits, int n_tables, int cap, int top_k) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = make_layout(d, k_bits, n_tables, cap, sizeof(T),
-                                 kScaled);
+  // the narrow kernel computes its layout as it did before the wide one
+  // existed, so its code does not change
+  const Layout lay =
+      kWide ? make_layout(d, k_bits, n_tables, cap, sizeof(T), kScaled)
+            : narrow_layout(d, k_bits, n_tables, cap, sizeof(T), kScaled);
   const int kl = k_bits * n_tables;
   const int c = lay.c;
   auto* bars = reinterpret_cast<uint64_t*>(smem);  // [kWarps][kWarpStages]
   unsigned char* ring = smem + 8 * kWarps * kWarpStages;
   float* q = reinterpret_cast<float*>(smem + lay.ring);
-  float* qn = q + d;
+  float* qn = q + d;                               // narrow only
   float* th = qn + d;                              // [d, KL], as stored
-  float* red_v = th + d * kl;
+  float* red_v = kWide ? q + d : th + d * kl;
   int* red_p = reinterpret_cast<int*>(red_v + 2 * kWarps);
   int* slab = red_p + 2 * kWarps;
   int* span = slab + n_tables;
@@ -281,8 +319,10 @@ __global__ void __launch_bounds__(kThreads) lss_topk_kernel(
 
   // ---- stage 1: q, theta, normalise + hash ------------------------------
   if (tid == 0) {
-    for (int i = 0; i < kWarps * kWarpStages; ++i) mbar_init(&bars[i]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if constexpr (!kWide) {
+      for (int i = 0; i < kWarps * kWarpStages; ++i) mbar_init(&bars[i]);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
     *count = 0;
   }
   for (int t = tid; t < n_tables; t += kThreads) span[t] = 0;
@@ -293,7 +333,8 @@ __global__ void __launch_bounds__(kThreads) lss_topk_kernel(
     q[i] = v;
     ss = fmaf(v, v, ss);
   }
-  for (int e = tid; e < d * kl; e += kThreads) th[e] = theta[e];
+  if constexpr (!kWide)
+    for (int e = tid; e < d * kl; e += kThreads) th[e] = theta[e];
   for (int h = tid; h < lay.hash; h += kThreads) table[h] = -1;
   ss = warp_sum(ss);
   if (lane == 0) red_v[warp] = ss;
@@ -305,11 +346,18 @@ __global__ void __launch_bounds__(kThreads) lss_topk_kernel(
   }
   __syncthreads();
   const float denom = __int_as_float(red_p[0]);
-  for (int i = tid; i < d; i += kThreads) qn[i] = q[i] / denom;
-  __syncthreads();
-  for (int j = warp; j < kl; j += kWarps) {
-    const float s = simhash_score(qn, th + j, kl, d, lane);
-    if (lane == 0) bits[j] = s > 0.f ? 1 : 0;
+  if constexpr (kWide) {
+    for (int j = warp; j < kl; j += kWarps) {
+      const float s = simhash_score_div(q, denom, theta + j, kl, d, lane);
+      if (lane == 0) bits[j] = s > 0.f ? 1 : 0;
+    }
+  } else {
+    for (int i = tid; i < d; i += kThreads) qn[i] = q[i] / denom;
+    __syncthreads();
+    for (int j = warp; j < kl; j += kWarps) {
+      const float s = simhash_score(qn, th + j, kl, d, lane);
+      if (lane == 0) bits[j] = s > 0.f ? 1 : 0;
+    }
   }
   __syncthreads();
   for (int t = tid; t < n_tables; t += kThreads) {
@@ -363,6 +411,7 @@ __global__ void __launch_bounds__(kThreads) lss_topk_kernel(
   Chunk next;                                  // the next chunk to copy
   uint64_t* wbars = bars + warp * kWarpStages;
   auto fetch = [&](int j) {                    // lane 0 copies chunk j
+    if constexpr (kWide) return;
     next.seek(warp + j * kWarps, span, lay.rows);
     const auto src = reinterpret_cast<uintptr_t>(
         w + (static_cast<size_t>(slab[next.t]) * cap + next.r0) * d);
@@ -399,6 +448,51 @@ __global__ void __launch_bounds__(kThreads) lss_topk_kernel(
   // ---- stage 3: logits of the first occurrences, each warp its chunks ---
   Chunk cur;
   for (int j = 0; j < mine; ++j) {
+    if constexpr (kWide) {
+      cur.seek(warp + j * kWarps, span, lay.rows);
+      const size_t row0 = static_cast<size_t>(slab[cur.t]) * cap + cur.r0;
+      const T* rows = w + row0 * d;        // the chunk, in global memory
+      const int pos0 = cur.t * cap + cur.r0;
+      unsigned live = 0;
+      float acc[kRowsAtOnce], sc[kRowsAtOnce];
+#pragma unroll
+      for (int u = 0; u < kRowsAtOnce; ++u) {
+        if (u < cur.rows && ids[pos0 + u] >= 0) live |= 1u << u;
+        acc[u] = 0.f;
+        sc[u] = 1.f;
+        if constexpr (kScaled) {
+          if (live >> u & 1) sc[u] = scl[pos0 + u];
+        }
+      }
+      if (!live) continue;
+      // kWideLoads elements of each live row in flight a lane before the
+      // fmafs use them; each lane still sums i = lane, lane + 32, ... in
+      // order
+      for (int i0 = lane; i0 < d; i0 += 32 * kWideLoads) {
+        T v[kWideLoads][kRowsAtOnce];
+        float qv[kWideLoads];
+#pragma unroll
+        for (int k = 0; k < kWideLoads; ++k) {
+          const int i = i0 + 32 * k;
+          qv[k] = i < d ? q[i] : 0.f;
+#pragma unroll
+          for (int u = 0; u < kRowsAtOnce; ++u)
+            v[k][u] = (i < d && (live >> u & 1)) ? rows[u * d + i] : T{};
+        }
+#pragma unroll
+        for (int k = 0; k < kWideLoads; ++k) {
+          if (i0 + 32 * k >= d) break;
+#pragma unroll
+          for (int u = 0; u < kRowsAtOnce; ++u)
+            if (live >> u & 1)
+              acc[u] = fmaf(qv[k], widen(v[k][u], sc[u]), acc[u]);
+        }
+      }
+      const float v = warp_sum8(acc, lane);
+      const int u = (lane >> 2) & 7;
+      if ((lane & 3) == 0 && (live >> u & 1)) logit[pos0 + u] = v;
+      continue;
+    }
     if (j + kWarpStages - 1 < mine) fetch(j + kWarpStages - 1);
     mbar_wait(&wbars[j % kWarpStages], (j / kWarpStages) & 1);
     cur.seek(warp + j * kWarps, span, lay.rows);
@@ -475,24 +569,43 @@ Layout layout_for(int d, int k_bits, int n_tables, int cap, int storage) {
   return make_layout(d, k_bits, n_tables, cap, itemsize, storage == 2);
 }
 
-template <typename T, bool kSlotSmem>
+template <typename T>
+using KernelFn = void (*)(const float*, const float*, const int*, const T*,
+                          const float*, float*, int*, int*, int*,
+                          unsigned char*, int, int, int, int, int);
+
+// The kernel of this layout: per-slot arrays in shared memory or in the
+// scratch, narrow or wide.
+template <typename T>
+KernelFn<T> kernel_for(const Layout& lay) {
+  if (lay.wide)
+    return lay.slot_in_smem ? lss_topk_kernel<T, true, true>
+                            : lss_topk_kernel<T, false, true>;
+  return lay.slot_in_smem ? lss_topk_kernel<T, true, false>
+                          : lss_topk_kernel<T, false, false>;
+}
+
+template <typename T>
 cudaError_t set_smem(const Layout& lay) {
   if (lay.smem > kSmemLimit) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(lss_topk_kernel<T, kSlotSmem>,
+  return cudaFuncSetAttribute(kernel_for<T>(lay),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(lay.smem));
 }
 
-template <typename T, bool kSlotSmem>
-int launch_as(const void* q_aug, const void* theta, const void* tids,
+template <typename T>
+int launch(const void* q_aug, const void* theta, const void* tids,
            const void* w, const void* scales, void* top_logits,
            void* top_ids, void* sample, void* cand, void* scratch,
            int n_queries, int d, int k_bits, int n_tables, int cap,
-           int top_k, const Layout& lay, cudaStream_t stream) {
-  cudaError_t err = set_smem<T, kSlotSmem>(lay);
+           int top_k, int storage, cudaStream_t stream) {
+  const Layout lay = layout_for(d, k_bits, n_tables, cap, storage);
+  if (!lay.slot_in_smem && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_smem<T>(lay);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_queries > 0) {
-    lss_topk_kernel<T, kSlotSmem><<<n_queries, kThreads, lay.smem, stream>>>(
+    kernel_for<T>(lay)<<<n_queries, kThreads, lay.smem, stream>>>(
         static_cast<const float*>(q_aug), static_cast<const float*>(theta),
         static_cast<const int*>(tids), static_cast<const T*>(w),
         static_cast<const float*>(scales), static_cast<float*>(top_logits),
@@ -504,33 +617,12 @@ int launch_as(const void* q_aug, const void* theta, const void* tids,
 }
 
 template <typename T>
-int launch(const void* q_aug, const void* theta, const void* tids,
-           const void* w, const void* scales, void* top_logits,
-           void* top_ids, void* sample, void* cand, void* scratch,
-           int n_queries, int d, int k_bits, int n_tables, int cap,
-           int top_k, int storage, cudaStream_t stream) {
-  const Layout lay = layout_for(d, k_bits, n_tables, cap, storage);
-  if (lay.slot_in_smem)
-    return launch_as<T, true>(q_aug, theta, tids, w, scales, top_logits,
-                           top_ids, sample, cand, scratch, n_queries, d,
-                           k_bits, n_tables, cap, top_k, lay, stream);
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_as<T, false>(q_aug, theta, tids, w, scales, top_logits,
-                          top_ids, sample, cand, scratch, n_queries, d,
-                          k_bits, n_tables, cap, top_k, lay, stream);
-}
-
-template <typename T>
 int blocks_per_sm(const Layout& lay) {
-  cudaError_t err = lay.slot_in_smem ? set_smem<T, true>(lay)
-                                     : set_smem<T, false>(lay);
+  cudaError_t err = set_smem<T>(lay);
   int n = 0;
   if (err == cudaSuccess)
-    err = lay.slot_in_smem
-              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &n, lss_topk_kernel<T, true>, kThreads, lay.smem)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &n, lss_topk_kernel<T, false>, kThreads, lay.smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel_for<T>(lay), kThreads, lay.smem);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -550,6 +642,11 @@ long long lss_topk_smem_bytes(int d, int k_bits, int n_tables, int cap,
 long long lss_topk_scratch_bytes(int d, int k_bits, int n_tables, int cap,
                                  int storage) {
   return layout_for(d, k_bits, n_tables, cap, storage).scratch;
+}
+
+// 1 if the layout of these shapes is the wide one, else 0.
+int lss_topk_wide(int d, int k_bits, int n_tables, int cap, int storage) {
+  return layout_for(d, k_bits, n_tables, cap, storage).wide ? 1 : 0;
 }
 
 // Blocks that fit on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),

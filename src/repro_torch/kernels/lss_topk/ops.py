@@ -11,13 +11,15 @@ format ``w_bucketed`` has, with ``w_scale`` iff it is int8.
 
 The TPU's VMEM budget becomes a shared-memory layout here
 (:func:`lss_topk_layout`, the twin of ``make_layout`` in the kernel): q,
-q/|q|, theta and a ring of slab chunks always live in a block's shared
-memory; the per-slot arrays (ids, logits, int8 scales, the dedup hash
-table) join them where everything fits in the 232,448 B an H100 block can
-use, and otherwise go to a per-query scratch tensor that the wrapper
-allocates.  So every C is served; only a q/theta/ring part above the limit
-(a very wide d or K*L) is refused.  No TPU padding (B to the query tile,
-d and P to 128 lanes) is carried over.
+q/|q|, theta and a ring of slab chunks live in a block's shared memory
+where they fit (the narrow layout); at an LM head's width, where they do
+not, the wide layout keeps one copy of q there and reads theta and the
+slab rows from global memory.  The per-slot arrays (ids, logits, int8
+scales, the dedup hash table) join them where everything fits in the
+232,448 B an H100 block can use, and otherwise go to a per-query scratch
+tensor that the wrapper allocates.  So every C and every width is
+served.  No TPU padding (B to the query tile, d and P to 128 lanes) is
+carried over.
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ def _library() -> ctypes.CDLL:
         lib.lss_topk_launch.restype = i
         for fn, res in (("lss_topk_smem_bytes", ll),
                         ("lss_topk_scratch_bytes", ll),
-                        ("lss_topk_blocks_per_sm", i)):
+                        ("lss_topk_blocks_per_sm", i),
+                        ("lss_topk_wide", i)):
             getattr(lib, fn).argtypes = [i] * 5
             getattr(lib, fn).restype = res
         lib.lss_topk_error_string.argtypes = [i]
@@ -80,6 +83,7 @@ class LssTopkLayout(NamedTuple):
     hash: int          # dedup hash table entries (a power of two >= 2C)
     smem: int          # dynamic shared memory of one block
     scratch: int       # scratch bytes per query (0: all in shared memory)
+    wide: bool = False  # theta and slab rows from global memory, no ring
 
 
 def lss_topk_layout(d: int, k_bits: int, n_tables: int, cap: int,
@@ -87,12 +91,14 @@ def lss_topk_layout(d: int, k_bits: int, n_tables: int, cap: int,
     """One ``lss_topk`` block's memory (mirrors ``make_layout`` in
     ``csrc/lss_topk.cu``).
 
-    Shared memory: for each of the 8 warps, 2 mbarriers and a ring of 2
-    stages (a stage holds one chunk, ~4 KB of slab rows, + 32 B: the
-    kernel rounds each chunk's bulk copy out to 16 B at both ends); q,
-    q/|q|, theta and a few small arrays.  The per-slot arrays, C ids, C
-    logits, C int8 scales and a hash table of ``hash`` slot positions
-    (load factor <= 0.5), join them if everything fits in
+    Shared memory, narrow: for each of the 8 warps, 2 mbarriers and a
+    ring of 2 stages (a stage holds one chunk, ~4 KB of slab rows, + 32 B:
+    the kernel rounds each chunk's bulk copy out to 16 B at both ends);
+    q, q/|q|, theta and a few small arrays.  Where those exceed
+    ``SMEM_LIMIT_BYTES`` the layout is wide: q and the small arrays only,
+    chunks of 8 rows read from global memory (``stage`` 0).  The per-slot
+    arrays, C ids, C logits, C int8 scales and a hash table of ``hash``
+    slot positions (load factor <= 0.5), join them if everything fits in
     ``SMEM_LIMIT_BYTES``; otherwise they are the per-query scratch."""
     c = n_tables * cap
     row_bytes = d * slabs_mod.slab_itemsize(slab_dtype)
@@ -103,12 +109,16 @@ def lss_topk_layout(d: int, k_bits: int, n_tables: int, cap: int,
     kl = k_bits * n_tables
     ring = _WARPS * _WARP_STAGES * (8 + stage)     # mbarriers + stages
     vec = _align16(4 * (2 * d + d * kl + 4 * _WARPS + 2 * n_tables + kl + 1))
+    wide = ring + vec > _build.SMEM_LIMIT_BYTES
+    if wide:
+        rows, stage, ring = _ROWS_AT_ONCE, 0, 0
+        vec = _align16(4 * (d + 4 * _WARPS + 2 * n_tables + kl + 1))
     slot = _align16(4 * c * (3 if slab_dtype == "int8" else 2)
                     + 4 * hash_entries)
     in_smem = ring + vec + slot <= _build.SMEM_LIMIT_BYTES
     return LssTopkLayout(rows, stage, hash_entries,
                          ring + vec + (slot if in_smem else 0),
-                         0 if in_smem else slot)
+                         0 if in_smem else slot, wide)
 
 
 def lss_topk_smem_bytes(d: int, k_bits: int, n_tables: int, cap: int,
@@ -180,10 +190,8 @@ def lss_topk_cuda(q_aug: torch.Tensor, theta: torch.Tensor,
     if lay.smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(
             f"lss_topk: d={d}, K*L={k_bits * n_tables} needs {lay.smem} B of "
-            f"shared memory for q, theta and a ring of "
-            f"{_WARPS * _WARP_STAGES} x {lay.stage} B, more than the "
-            f"{_build.SMEM_LIMIT_BYTES} B an H100 block can use; reduce d "
-            f"or K*L")
+            f"shared memory for one copy of q, more than the "
+            f"{_build.SMEM_LIMIT_BYTES} B an H100 block can use")
     q_aug, theta = q_aug.contiguous(), theta.contiguous()
     table_ids, w_bucketed = table_ids.contiguous(), w_bucketed.contiguous()
     scales = w_scale.contiguous() if w_scale is not None else None

@@ -3,8 +3,11 @@
 CUDA tensors).
 
 The kernel's launch plan (:func:`simhash_codes_plan`: rows per block,
-theta's padded row stride, shared memory) is made here and passed to the
-kernel, which refuses one that does not fit the shapes.
+theta's padded row stride, the d-tile, shared memory) is made here and
+passed to the kernel, which refuses one that does not fit the shapes.
+Where theta and a block's rows fit in shared memory whole, they go there
+in one piece; at a wider d (an LM head's d_model + 1) they are fed in
+d-tiles, so every width is served.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ simhash_codes_op = kernel_op("simhash_codes")
 simhash_codes_op.register_impl("ref", simhash_codes_ref)
 
 _MAX_ROWS = 8      # rows per block, at most (kMaxRows in the kernel)
+_MAX_TILE = 1024   # d-tile, at most: a few blocks an SM, not one
 
 _lib = None
 
@@ -34,7 +38,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("simhash_codes")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.simhash_codes_launch.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
+        lib.simhash_codes_launch.argtypes = [vp, vp, vp] + [i] * 8 + [vp]
         lib.simhash_codes_launch.restype = i
         lib.simhash_codes_error_string.argtypes = [i]
         lib.simhash_codes_error_string.restype = ctypes.c_char_p
@@ -47,6 +51,7 @@ class SimhashCodesPlan(NamedTuple):
     blocks: int     # the grid: ceil(B / rows)
     stride: int     # theta's row stride in shared memory: K*L, made odd
     smem: int       # dynamic shared memory of one block (bytes)
+    tile: int = 0   # d-tile (a multiple of 32); 0: theta and rows whole
 
 
 def simhash_codes_plan(bsz: int, d: int, k_bits: int, n_tables: int,
@@ -54,11 +59,23 @@ def simhash_codes_plan(bsz: int, d: int, k_bits: int, n_tables: int,
     """One launch of the kernel: as many rows a block as keep the grid at
     least ``n_sms`` blocks (at most 8), theta's rows padded to an odd
     stride (so a column's 32 reads hit 32 banks), theta and the rows in
-    shared memory."""
+    shared memory; where they do not fit whole, in d-tiles of at most
+    1,024 elements, a multiple of 32 (each lane then sums in the same
+    order)."""
     rows = max(1, min(_MAX_ROWS, bsz // n_sms))
     stride = k_bits * n_tables | 1
+    whole = 4 * (d * stride + rows * d)
+    if whole <= _build.SMEM_LIMIT_BYTES:
+        return SimhashCodesPlan(rows, -(-bsz // rows), stride, whole)
+    tile = min(_MAX_TILE,
+               _build.SMEM_LIMIT_BYTES // (4 * (stride + rows)) // 32 * 32)
+    if tile < 32:
+        raise ValueError(f"simhash_codes: K*L={k_bits * n_tables} "
+                         f"hyperplanes leave no 32-element d-tile within "
+                         f"the {_build.SMEM_LIMIT_BYTES} B an H100 block "
+                         f"can use")
     return SimhashCodesPlan(rows, -(-bsz // rows), stride,
-                            4 * (d * stride + rows * d))
+                            4 * (tile * stride + rows * tile), tile)
 
 
 @simhash_codes_op.impl("cuda")
@@ -79,17 +96,12 @@ def simhash_codes_cuda(x: torch.Tensor, theta: torch.Tensor, k_bits: int,
     bsz, d = x.shape
     plan = simhash_codes_plan(bsz, d, k_bits, n_tables,
                               _build.sm_count(x.device))
-    if plan.smem > _build.SMEM_LIMIT_BYTES:
-        raise ValueError(f"simhash_codes: d={d}, K*L={k_bits * n_tables} "
-                         f"needs {plan.smem} B of shared memory, more than "
-                         f"the {_build.SMEM_LIMIT_BYTES} B an H100 block "
-                         f"can use")
     x, theta = x.contiguous(), theta.contiguous()
     out = torch.empty((bsz, n_tables), dtype=torch.int32, device=x.device)
     lib = _library()
     err = lib.simhash_codes_launch(
         x.data_ptr(), theta.data_ptr(), out.data_ptr(), bsz, d, k_bits,
-        n_tables, plan.rows, plan.stride, plan.smem,
+        n_tables, plan.rows, plan.stride, plan.tile, plan.smem,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "simhash_codes", lib.simhash_codes_error_string)
     simhash_codes_cuda.launches += 1

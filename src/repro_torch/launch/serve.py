@@ -204,6 +204,10 @@ def main(argv: list[str] | None = None) -> dict:
     n_proc = (args.num_processes if args.num_processes is not None
               else int(os.environ.get(DIST_NUM_PROCESSES_ENV, "1")))
     coord = args.coordinator or os.environ.get(DIST_COORDINATOR_ENV)
+    family = get_config(args.arch).family
+    if family != "lm":
+        raise SystemExit(f"serve: --arch {args.arch} is a {family} model; "
+                         f"this launcher serves the LM archs")
     if args.mode == "decode" and n_proc > 1 and coord:
         # streaming decode sessions are not routed through the OP_DECODE
         # opcode channel: the leader's fused decode steps end in fleet

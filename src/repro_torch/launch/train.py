@@ -92,7 +92,8 @@ def main(argv: list[str] | None = None) -> dict:
     args = _parser().parse_args(argv)
     spec = get_config(args.arch)
     if spec.family != "lm":
-        print("this launcher trains LM archs; see examples/ for others")
+        print(f"this launcher trains LM archs; {args.arch} is a "
+              f"{spec.family} model")
         sys.exit(2)
     shape = _mesh_shape(args.mesh) if args.mesh else None
     if args.devices:

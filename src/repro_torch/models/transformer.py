@@ -1,5 +1,8 @@
-"""Decoder-only LM, the dense architectures (counterpart of
-``repro.models.transformer``): qwen2-0.5b/7b and qwen3-4b.
+"""Decoder-only LM covering the five LM architectures (counterpart of
+``repro.models.transformer``): dense (qwen2-0.5b/7b, qwen3-4b) and MoE
+(qwen2-moe-a2.7b: shared + routed top-4, ``moe_style="replace"``;
+arctic-480b: a dense residual MLP in parallel with 128 experts top-2,
+``moe_style="parallel"``; :mod:`repro_torch.models.moe`).
 
 Parameters are a plain dict of tensors with the JAX package's names and
 layout: ``embed``, ``final_norm``, ``lm_head`` (untied only) and
@@ -26,9 +29,6 @@ JAX package's functional cache update (and of its buffer donation on
 TPU), and it is what lets the serving engine capture a step as a CUDA
 graph over the pool's own slabs.
 
-The MoE styles come with the rest of the model zoo (ROADMAP Queue 1 item
-8).
-
 Sharded (``param_specs`` under a mesh the trainer makes active), the
 vocab rows, the attention heads and the FFN columns are split over
 ``model`` as in the JAX package, and the same code runs on ``DTensor``
@@ -39,7 +39,10 @@ for decode only), and every model rank attends over all heads.
 Attention itself runs on each rank's local heads and rows
 (:func:`_attention`): its masks and chunk loop are plain tensors.  The
 lookup, the gold logit and the log-sum-exp never gather the table or
-the logits (:mod:`repro_torch.utils.sharding`).
+the logits (:mod:`repro_torch.utils.sharding`).  The MoE leaves carry
+the JAX package's specs (experts over ``model``, ``moe_fsdp`` d_ff over
+``data``), but the MoE layer itself runs on one device: the zoo on a
+mesh is later work (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 from repro_torch.utils.sharding import (P, contiguous_stride, embedding,
                                         is_dtensor, logsumexp, maybe_shard,
                                         mesh_axis_size, replicate,
@@ -93,6 +97,14 @@ class TransformerConfig(NamedTuple):
     # Python loop, which is JAX's "unroll"
     layers_impl: str = "scan"
 
+    @property
+    def moe_cfg(self) -> MoEConfig | None:
+        if self.moe_style == "none":
+            return None
+        return MoEConfig(self.n_experts, self.moe_top_k, self.d_model,
+                         self.moe_d_ff, self.n_experts_padded,
+                         self.capacity_factor, n_groups=self.moe_groups)
+
     def param_count(self) -> int:
         """Analytic parameter count (for MODEL_FLOPS cross-checks)."""
         d, f = self.d_model, self.d_ff
@@ -113,13 +125,13 @@ class TransformerConfig(NamedTuple):
         head = 0 if self.tie_embeddings else self.vocab * d
         return self.n_layers * per_layer + self.vocab * d + head + d
 
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe_style != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_style={cfg.moe_style!r} comes with the rest "
-            f"of the model zoo (ROADMAP Queue 1 item 8); the port runs the "
-            f"dense architectures")
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if self.moe_style == "none":
+            return self.param_count()
+        inactive = (self.n_experts - self.moe_top_k) * 3 * self.d_model \
+            * self.moe_d_ff * self.n_layers
+        return self.param_count() - inactive
 
 
 # ------------------------------------------------------------------ init --
@@ -128,9 +140,11 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
                 device: str | torch.device | None = None) -> dict:
     """Normal draws scaled as the JAX package's ``init_params`` (embed
     N(0, 1); projections d_in**-0.5), unit norms, zero biases; drawn on
-    ``generator``'s device in fp32, stored in ``cfg.dtype`` (norm scales in
-    fp32) on ``device`` (the GPU unless the caller asks for the CPU)."""
-    _dense_only(cfg)
+    ``generator``'s device in fp32, stored in ``cfg.dtype`` (norm scales
+    and the MoE router in fp32) on ``device`` (the GPU unless the caller
+    asks for the CPU).  The MoE leaves (``layers.moe``: router, w_gate,
+    w_up, w_down, stacked ``[n_layers, ...]``) are drawn one layer's
+    expert at a time (:func:`~repro_torch.models.moe.init_moe_params`)."""
     dev = resolve_device(device)
     dt = cfg.dtype
     n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
@@ -155,8 +169,17 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         lyr.update(bq=zeros(n, nq), bk=zeros(n, nkv), bv=zeros(n, nkv))
     if cfg.qk_norm:
         lyr.update(q_norm=ones(n, cfg.head_dim), k_norm=ones(n, cfg.head_dim))
-    lyr.update(w_gate=nrm((n, d, f), s), w_up=nrm((n, d, f), s),
-               w_down=nrm((n, f, d), f ** -0.5))
+    if cfg.moe_style in ("none", "parallel"):
+        lyr.update(w_gate=nrm((n, d, f), s), w_up=nrm((n, d, f), s),
+                   w_down=nrm((n, f, d), f ** -0.5))
+    if cfg.moe_style != "none":
+        lyr["moe"] = init_moe_params(generator, cfg.moe_cfg, dtype=dt,
+                                     device=dev, n_layers=n)
+    if cfg.shared_expert_ff:
+        sf = cfg.shared_expert_ff
+        lyr.update(sh_gate=nrm((n, d, sf), s), sh_up=nrm((n, d, sf), s),
+                   sh_down=nrm((n, sf, d), sf ** -0.5),
+                   sh_gate_w=nrm((n, d, 1), s))
     params = {"embed": nrm((cfg.vocab, d), 1.0), "layers": lyr,
               "final_norm": ones(d)}
     if not cfg.tie_embeddings:
@@ -165,9 +188,9 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
 
 
 def param_specs(cfg: TransformerConfig) -> dict:
-    """The layout of each parameter on a (data, model) mesh: vocab, d_ff
-    and the attention heads over ``model`` (JAX's dense keys)."""
-    _dense_only(cfg)
+    """The layout of each parameter on a (data, model) mesh: vocab, d_ff,
+    experts and the attention heads over ``model``; the expert tensors'
+    d_ff also over ``data`` where ``moe_fsdp`` (JAX's keys and specs)."""
     lyr = {
         "ln1": P(None, None), "ln2": P(None, None),
         "wq": P(None, None, "model"),
@@ -182,9 +205,23 @@ def param_specs(cfg: TransformerConfig) -> dict:
     if cfg.qk_norm:
         lyr["q_norm"] = P(None, None)
         lyr["k_norm"] = P(None, None)
-    lyr["w_gate"] = P(None, None, "model")
-    lyr["w_up"] = P(None, None, "model")
-    lyr["w_down"] = P(None, "model", None)
+    if cfg.moe_style in ("none", "parallel"):
+        lyr["w_gate"] = P(None, None, "model")
+        lyr["w_up"] = P(None, None, "model")
+        lyr["w_down"] = P(None, "model", None)
+    if cfg.moe_style != "none":
+        fs = "data" if cfg.moe_fsdp else None
+        lyr["moe"] = {
+            "router": P(None, None, None),
+            "w_gate": P(None, "model", None, fs),
+            "w_up": P(None, "model", None, fs),
+            "w_down": P(None, "model", fs, None),
+        }
+    if cfg.shared_expert_ff:
+        lyr["sh_gate"] = P(None, None, "model")
+        lyr["sh_up"] = P(None, None, "model")
+        lyr["sh_down"] = P(None, "model", None)
+        lyr["sh_gate_w"] = P(None, None, None)
     specs = {
         "embed": P("model", None),
         "layers": lyr,
@@ -196,7 +233,8 @@ def param_specs(cfg: TransformerConfig) -> dict:
 
 
 def _layer_params(params: dict, i: int) -> dict:
-    return {k: a[i] for k, a in params["layers"].items()}
+    return {k: ({kk: v[i] for kk, v in a.items()} if isinstance(a, dict)
+                else a[i]) for k, a in params["layers"].items()}
 
 
 # -------------------------------------------------------------- forward ---
@@ -283,14 +321,33 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
 
 
 def _ffn_block(x, lp, cfg: TransformerConfig):
+    """The dense SwiGLU, the MoE, or both in parallel, plus the shared
+    expert with its sigmoid gate -> (x + out, the MoE's aux loss; None
+    for a dense layer)."""
+    b, s, d = x.shape
     h = L.rms_norm(x, lp["ln2"])
-    return x + maybe_shard(L.swiglu(h, lp["w_gate"], lp["w_up"],
-                                    lp["w_down"]), P("data", None, None))
+    dense = None
+    if cfg.moe_style in ("none", "parallel"):
+        dense = maybe_shard(L.swiglu(h, lp["w_gate"], lp["w_up"],
+                                     lp["w_down"]), P("data", None, None))
+    if cfg.moe_style == "none":
+        return x + dense, None
+    moe_out, aux = moe_ffn(h.reshape(b * s, d), lp["moe"], cfg.moe_cfg)
+    out = moe_out.reshape(b, s, d)
+    if dense is not None:
+        out = dense + out
+    if cfg.shared_expert_ff:
+        gate = torch.sigmoid(torch.einsum("bsd,dz->bsz", h,
+                                          lp["sh_gate_w"]).float())
+        sh = L.swiglu(h, lp["sh_gate"], lp["sh_up"], lp["sh_down"])
+        out = out + sh * gate.to(sh.dtype)
+    return x + out, aux
 
 
 def _layer(x, lp, cfg, rope, mode, cache=None, kv_len=None):
     x, new_cache = _attn_block(x, lp, cfg, rope, mode, cache, kv_len)
-    return _ffn_block(x, lp, cfg), new_cache
+    x, aux = _ffn_block(x, lp, cfg)
+    return x, new_cache, aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -298,8 +355,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     """tokens [B, S] -> (hidden [B, S, D] after final norm, caches, aux).
 
     ``caches`` (prefill only) is ``(k, v)``, each ``[L, B, S, KV, H]``;
-    ``aux`` is the MoE balance loss, 0 for the dense architectures."""
-    _dense_only(cfg)
+    ``aux`` is the MoE balance loss summed over the layers, 0 for the
+    dense architectures."""
     x = maybe_shard(embedding(params["embed"], tokens),
                     P("data", None, None)).to(cfg.dtype)
     # every row's positions are 0..S-1: one row of cos/sin broadcasts
@@ -308,14 +365,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     rope = tuple(_replicated_like(t, x) for t in L.rope_cos_sin(
         positions, cfg.head_dim, cfg.rope_base))
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=_local(x).device)
     for i in range(cfg.n_layers):
-        x, cache = _layer(x, _layer_params(params, i), cfg, rope, mode)
+        x, cache, aux_i = _layer(x, _layer_params(params, i), cfg, rope,
+                                 mode)
+        if aux_i is not None:
+            aux = aux + aux_i
         if mode == "prefill":
             ks.append(cache[0])
             vs.append(cache[1])
     caches = (torch.stack(ks), torch.stack(vs)) if mode == "prefill" else None
-    aux = _replicated_like(torch.zeros((), dtype=torch.float32,
-                                       device=_local(x).device), x)
+    if cfg.moe_style == "none":
+        aux = _replicated_like(aux, x)
     return L.rms_norm(x, params["final_norm"]), caches, aux
 
 
@@ -414,13 +475,14 @@ def _decode_layers(params: dict, token: torch.Tensor,
     layer i's ``(k, v)`` ``[B, S, KV, H]``, which the layer writes in
     place; ``after(i, k, v)`` runs once layer i has attended; positions
     [B, 1], kv_len scalar or [B] -> hidden [B, D].  Every op is
-    row-parallel over B."""
-    _dense_only(cfg)
+    row-parallel over B, but for the MoE's capacity: a row's tokens drop
+    only when more than C = max(8, ...) rows pick one expert, so at B <= 8
+    nothing drops."""
     x = embedding(params["embed"], token[:, None]).to(cfg.dtype)  # [B, 1, D]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
     for i in range(cfg.n_layers):
-        x, (k_i, v_i) = _layer(x, _layer_params(params, i), cfg, rope,
-                               "decode", layer_cache(i), kv_len)
+        x, (k_i, v_i), _ = _layer(x, _layer_params(params, i), cfg, rope,
+                                  "decode", layer_cache(i), kv_len)
         if after is not None:
             after(i, k_i, v_i)
     return L.rms_norm(x[:, 0], params["final_norm"])

@@ -648,6 +648,68 @@ def test_lss_topk_at_the_decode_shape(cuda, bsz):
                           what="top_ids")
 
 
+# --------------------------------------------- every registry LM width --
+
+# (d_aug, K, L, P) of each registry LM's LSS head (d_model + 1), the serve
+# launcher's K = 6 index at qwen2-7b's width, and bert4rec's item head
+LM_WIDTHS = [(897, 10, 1, 304), (2049, 10, 1, 304), (2561, 10, 1, 304),
+             (3585, 10, 1, 304), (7169, 8, 1, 256), (3585, 6, 1, 4752),
+             (65, 12, 1, 496)]
+
+
+@pytest.mark.parametrize("slab_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", LM_WIDTHS)
+def test_lss_topk_at_every_lm_width(cuda, shape, slab_dtype):
+    """Narrow where q, theta and the rings fit in a block, wide where they
+    do not (qwen3-4b, qwen2-7b and arctic-480b's widths): the kernel
+    agrees with its plain version at the decode batch and at one row."""
+    from repro_torch.kernels.lss_topk.ops import lss_topk_layout
+    d, k_bits, n_tables, cap = shape
+    g = torch.Generator(cuda).manual_seed(d + k_bits)
+    q = augment_queries(torch.randn(8, d - 1, generator=g, device=cuda))
+    theta = torch.randn(d, k_bits * n_tables, generator=g, device=cuda)
+    tids = torch.randint(-1, 150_000, (n_tables, 2 ** k_bits, cap),
+                         generator=g, device=cuda, dtype=torch.int32)
+    wb = torch.randn(n_tables, 2 ** k_bits, cap, d, generator=g,
+                     device=cuda)
+    wb[tids < 0] = 0.0
+    w, scale = quantize_slabs(wb, slab_dtype)
+    del wb
+    lay = lss_topk_layout(d, k_bits, n_tables, cap, slab_dtype)
+    assert lay.smem <= 232_448
+    for bsz in (8, 1):
+        before = lss_topk_cuda.launches
+        got = lss_topk(q[:bsz], theta, tids, w, top_k=5, w_scale=scale)
+        assert lss_topk_cuda.launches == before + 1
+        want = lss_topk_ref(q[:bsz], theta, tids, w, top_k=6, w_scale=scale)
+        torch.cuda.synchronize()
+        rows = margin_rows(q[:bsz], theta)
+        assert_ints_equal(got[3], want[3], rows=rows, what="cand")
+        assert_ints_equal(got[2], want[2], rows=rows, what="sample")
+        assert_close(got[0], want[0][:, :5], rtol=1e-4, atol=1e-4,
+                     rows=rows, what="top_logits")
+        assert_topk_ids_equal(got[1], want[1][:, :5], want[0][:, :5], 1e-4,
+                              rows=rows, next_logit=want[0][:, 5],
+                              what="top_ids")
+
+
+@pytest.mark.parametrize("bsz", [1, 256, 4096])
+@pytest.mark.parametrize("shape", LM_WIDTHS)
+def test_simhash_codes_at_every_lm_width(cuda, shape, bsz):
+    """Whole or in d-tiles (d = 7,169, and d = 3,585 at 8 rows a block):
+    the codes equal the plain version's on every margin row."""
+    d, k_bits, n_tables, _ = shape
+    g = torch.Generator(cuda).manual_seed(bsz + d)
+    x = unit(torch.randn(bsz, d, generator=g, device=cuda))
+    theta = torch.randn(d, k_bits * n_tables, generator=g, device=cuda)
+    before = simhash_codes_cuda.launches
+    got = simhash_codes(x, theta, k_bits, n_tables)
+    assert simhash_codes_cuda.launches == before + 1
+    want = simhash_codes_ref(x, theta, k_bits, n_tables)
+    torch.cuda.synchronize()
+    assert_ints_equal(got, want, rows=margin_rows(x, theta), what="codes")
+
+
 # ------------------------------------------------ vocab-sharded serving --
 
 @pytest.mark.parametrize("slab_dtype", ["fp32", "int8"])

@@ -1,9 +1,11 @@
 """The port's launchers and arch registry on the CPU (counterpart of the
 JAX package's ``repro.launch.{serve,train}`` and ``repro.configs.
-{base,registry}``): each ported ``ArchSpec`` equals JAX's field for field
-(dtypes mapped), the unported ids raise, ``launch.serve`` runs every mode
-at the reduced size (generate with both heads, streaming decode and async
-scoring with online index refresh), ``--mode decode`` on a fleet exits
+{base,registry}``): each of the ten ``ArchSpec``s equals JAX's field for
+field (dtypes mapped), ``launch.serve`` runs every mode at the reduced
+size (generate with both heads, streaming decode and async scoring with
+online index refresh; streaming decode of the reduced MoE LM too), both
+launchers refuse a non-LM arch by its family, ``--mode decode`` on a
+fleet exits
 before any work (the fleets themselves run in test_torch_multihost.py),
 ``launch.train``'s multi-GPU flags exit before any work where they
 describe no fleet (its sharded runs are in test_torch_sharded_train.py),
@@ -54,32 +56,28 @@ def test_arch_spec_mirrors_jax(arch):
     assert t._fields == j._fields
     assert (t.arch_id, t.family, t.notes) == (j.arch_id, j.family, j.notes)
     assert _cfg_dict(j.model_cfg) == t.model_cfg._asdict()
-    assert t.model_cfg.dtype == torch.bfloat16
+    assert t.model_cfg.dtype == (torch.bfloat16 if t.family == "lm"
+                                 else torch.float32)
     assert t.model_cfg.param_count() == j.model_cfg.param_count()
-    assert t.lss._asdict() == j.lss._asdict()
+    assert (t.lss is None) == (j.lss is None)
+    if t.lss is not None:
+        assert t.lss._asdict() == j.lss._asdict()
     assert t.shapes == j.shapes and list(t.shapes) == list(j.shapes)
-    assert t.shape("decode_32k") == j.shape("decode_32k")
+    name = list(j.shapes)[-1]
+    assert t.shape(name) == j.shape(name)
     assert _cfg_dict(jreduced.reduced_model_cfg(arch)) == \
         reduced_model_cfg(arch)._asdict()
 
 
 def test_lm_shapes_mirror_jax():
     assert lm_shapes() == j_lm_shapes()
-    assert registry.ALL_ARCHS == ["qwen2-0.5b", "qwen2-7b", "qwen3-4b"]
-
-
-@pytest.mark.parametrize("arch", registry.NOT_PORTED)
-def test_unported_arch_ids_raise(arch):
-    jregistry.get_config(arch)                   # the reference has it
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        registry.get_config(arch)
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        reduced_model_cfg(arch)
+    assert registry.ALL_ARCHS == [
+        "arctic-480b", "qwen2-moe-a2.7b", "qwen2-0.5b", "qwen2-7b",
+        "qwen3-4b", "gcn-cora", "bert4rec", "dien", "deepfm", "autoint"]
 
 
 def test_registry_covers_the_jax_ids():
-    assert set(registry.ALL_ARCHS) | set(registry.NOT_PORTED) == \
-        set(jregistry.ALL_ARCHS)
+    assert registry.ALL_ARCHS == jregistry.ALL_ARCHS
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("gpt-2")
 
@@ -119,6 +117,29 @@ def test_serve_decode_with_refresh(capsys):
     assert "4/4 sessions served" in text
     assert f"index refresh: swaps={r['swaps']} rollbacks=0 failures=0 " \
            f"epoch={r['epoch']}" in text
+
+
+def test_serve_moe_decode(capsys):
+    """The reduced qwen2-moe-a2.7b (shared + routed experts) trains, fits
+    its LSS head and streams decode sessions through the launcher."""
+    out = serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
+                      "cpu", "--train-steps", "4", "--batch", "4",
+                      "--mode", "decode", "--streams", "2", "--sessions",
+                      "4", "--steps", "4", "--qps", "0"])
+    assert out["served"] == out["sessions"] == 4
+    assert out["stats"]["n_decode_tokens"] == 16
+    assert "4/4 sessions served" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["bert4rec", "gcn-cora", "deepfm"])
+def test_launchers_refuse_non_lm_archs_by_family(arch, capsys):
+    family = registry.get_config(arch).family
+    with pytest.raises(SystemExit, match=f"{arch} is a {family} model"):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert f"{arch} is a {family} model" in capsys.readouterr().out
 
 
 def test_serve_async_with_audit_metrics_and_refresh(capsys):

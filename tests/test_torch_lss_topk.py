@@ -217,8 +217,11 @@ def test_shared_memory_and_slab_bytes_at_delicious():
         assert big.smem <= SMEM_LIMIT_BYTES and big.hash == 32768
         assert big.scratch == 4 * 16384 * 2 + 4 * 32768 == 262_144
     assert lss_topk_scratch_bytes(129, 8, 4, 4096, "int8") == 327_680
-    # what the kernel cannot take: theta and the ring above the limit
-    assert lss_topk_smem_bytes(129, 32, 16, 64) > SMEM_LIMIT_BYTES
+    # theta and the ring above the limit: the wide layout keeps one copy
+    # of q in the block and reads theta and the rows from global memory
+    wide = lss_topk_layout(129, 32, 16, 64)
+    assert wide.wide and (wide.rows, wide.stage) == (8, 0)
+    assert lss_topk_smem_bytes(129, 32, 16, 64) <= SMEM_LIMIT_BYTES
     assert lss_topk_slab_dma_bytes(1, 808, 129) == 420_160
 
 

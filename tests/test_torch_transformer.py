@@ -101,12 +101,6 @@ def test_init_params_shapes_and_dtypes_mirror_jax():
         assert str(t.dtype).split(".")[-1] == str(leaf.dtype), keys
 
 
-def test_moe_waits_for_the_model_zoo():
-    cfg = _torch_cfg("qwen2-0.5b")._replace(moe_style="replace")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-
-
 # ------------------------------------------------------- against JAX --
 
 def test_forward_and_loss_match_jax(model):

@@ -36,9 +36,10 @@ port's paths at Delicious-200K's full width (random weights from a seed):
   head, the recall auditor, and the ``AsyncRuntime`` staged and open
   loop, with the Prometheus text and a chrome trace;
   ``paper_table1``: Table 1 for the four settings;
-  ``paper_table2``: the K x L sweep, each cell's ``lss_topk`` and
-  ``simhash_codes`` held against their plain versions and timed beside
-  their bounds; ``paper_fig2``: the per-epoch collision curves;
+  ``paper_table2``: the K x L sweep at the fast pass's sizes, each
+  cell's ``lss_topk`` and ``simhash_codes`` held against their plain
+  versions and timed beside their bounds; ``paper_fig2``: the per-epoch
+  collision curves;
 * ``decode``: streaming decode at Qwen2-0.5B's full width (24 layers,
   d_model 896, the 151,936-wide tied head; random bf16 weights):
   ``LMDecoder.fit_lss`` on the LM head (``simhash_codes``; K = 10, L = 1,
@@ -194,7 +195,9 @@ try:
     from repro_torch.kernels.simhash_codes.ops import (simhash_codes_cuda,
                                                        simhash_codes_plan)
     from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
+    from repro_torch.launch.roofline import peak_flops
     from repro_torch.launch.serve import LSS_CONFIG as LAUNCH_LSS
+    from repro_torch.launch.steps import build_cell, ctr_logits, ctr_loss
     from repro_torch.obs import assert_quiescent, trace_export
     from repro_torch.obs.audit import RecallAuditor
     from repro_torch.obs.export import prometheus_text
@@ -289,8 +292,11 @@ DP_STEPS = 5               # sharded_train: (2, 1) steps
 # one-process run's (sums over the vocab shards and the batch halves run
 # in other orders, and Adam carries their last bits from step to step)
 SHARDED_RTOL = 1e-4
+# the launchers' training before they serve or resume (launch, fleet_launch,
+# sharded_train's first launcher run)
+LAUNCH_TRAIN_STEPS = 20
 SHARDED_LAUNCH_STEPS = 24  # sharded_train: the launcher's 2x1 run resumes
-SHARDED_LAUNCH_BATCH = 8   # at step 20 and trains to this step
+SHARDED_LAUNCH_BATCH = 8   # at LAUNCH_TRAIN_STEPS and trains to this step
 # decode: the full head's top logit against an fp32 GEMM of the same
 # hidden states (both fp32 GEMMs; scaled like LOGIT_ATOL)
 DECODE_FULL_TOL = 1e-5
@@ -300,6 +306,12 @@ ARCTIC_LAYERS = 1          # arctic_decode: 35 layers do not fit one card
 ARCTIC_PROMPTS = 4         # arctic_decode: sessions
 ARCTIC_NEW = 16            # arctic_decode: new tokens a session
 ZOO_BATCH = 512            # serve_p99's batch (bert4rec_serve, zoo_step)
+# cells: build_cell's cells run on the card and dry-run at the same cut
+CELLS = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"),
+         ("bert4rec", "serve_p99"), ("deepfm", "serve_p99"),
+         ("gcn-cora", "molecule"))
+CELL_TRAIN_BATCH = 8       # cells: train_4k's global_batch, halved to fit
+CELL_DRYRUN_TIMEOUT_S = 600
 BERT4REC_TOP_K = 10
 
 
@@ -1205,8 +1217,11 @@ def phase_paper_table1(dev, smi, counters):
 
 
 def phase_paper_table2(dev, smi, counters):
-    """Table 2 (``table2_kl_sweep``): K in {4, 6, 8} x L in {1, 10, 50} on
-    the Delicious stand-in.  At each cell, outside the counts: the fitted
+    """Table 2 (``table2_kl_sweep``) at the reference's fast pass
+    (``paper_tables.FAST``: K in {4, 6} x L in {1, 10}, 2,048 rows, 150
+    training steps, 4 IUL epochs a cell) on the Delicious stand-in; the
+    full pass's 9 cells (K up to 8, L up to 50) took 175-186 s of the
+    script's 1,200 s limit.  At each cell, outside the counts: the fitted
     index's ``lss_topk`` against its plain version on the first
     TABLE2_CHECKED test queries with the hash margin (the plain version in
     chunks of TABLE2_CHUNK), the layout the kernel takes, its device ms on
@@ -1223,19 +1238,23 @@ def phase_paper_table2(dev, smi, counters):
 
     reset(counters)
     t0 = time.perf_counter()
-    rows = paper_tables.table2_kl_sweep(device=dev, on_cell=on_cell)
+    paper_tables.FAST = True
+    try:
+        rows = paper_tables.table2_kl_sweep(device=dev, on_cell=on_cell)
+    finally:
+        paper_tables.FAST = False
     launches = read(counters)
     seconds = time.perf_counter() - t0
     for cell in cells:
         emit(cell)
     shapes = {(c["K"], c["L"]) for c in cells}
-    require(len(rows) == len(cells) == 9
-            and shapes == {(k, l) for k in (4, 6, 8) for l in (1, 10, 50)},
-            "paper_table2: not the 9 cells")
+    require(len(rows) == len(cells) == 4
+            and shapes == {(k, l) for k in (4, 6) for l in (1, 10)},
+            "paper_table2: not the fast pass's 4 cells")
     for r in rows:
         require(0 <= r["P@1"] <= 1 and 0 <= r["P@5"] <= 1
                 and r["sample"] > 0, f"paper_table2 {r}: out of range")
-    emit({"phase": "paper_table2", "fast": paper_tables.FAST, "rows": rows,
+    emit({"phase": "paper_table2", "fast": True, "rows": rows,
           "seconds": seconds, "launches": launches, "device": smi})
     for kernel in ("simhash_codes_cuda", "lss_topk_cuda"):
         require(launches[kernel] > 0, f"{kernel} was not launched by "
@@ -2447,29 +2466,33 @@ def fit_line(out):
 
 def sharded_launch_runs():
     """``repro_torch.launch.train`` at Qwen2-0.5B width on one directory:
-    ``--devices 2 --mesh 1x2`` to step 20, ``--devices 2 --mesh 2x1``
-    resuming to step ``SHARDED_LAUNCH_STEPS``, one device resuming with
-    nothing left; seconds and losses."""
+    ``--devices 2 --mesh 1x2`` to step ``LAUNCH_TRAIN_STEPS``,
+    ``--devices 2 --mesh 2x1`` resuming to step ``SHARDED_LAUNCH_STEPS``,
+    one device resuming with nothing left; seconds and losses."""
+    first = LAUNCH_TRAIN_STEPS
     runs = {}
     with tempfile.TemporaryDirectory(prefix="sharded_launch_") as tmp:
         base = ["--arch", "qwen2-0.5b", "--batch", str(SHARDED_LAUNCH_BATCH),
                 "--ckpt-dir", tmp]
         out, s = run_launcher(
             "repro_torch.launch.train",
-            base + ["--steps", "20", "--devices", "2", "--mesh", "1x2"], 900)
+            base + ["--steps", str(first), "--devices", "2", "--mesh",
+                    "1x2"], 900)
         require("mesh: 1x2 (data x model) over 2 ranks, backend gloo" in out,
                 f"sharded launch 1x2: no mesh line\n{out[-2000:]}")
         runs["1x2"] = {"seconds": s, "fit": fit_line(out), "loss": float(
-            grab(r"done: step 20 loss ([\d.]+)", out, "1x2 train").group(1))}
+            grab(rf"done: step {first} loss ([\d.]+)", out,
+                 "1x2 train").group(1))}
         n = SHARDED_LAUNCH_STEPS
         out, s = run_launcher(
             "repro_torch.launch.train",
             base + ["--steps", str(n), "--devices", "2", "--mesh", "2x1"],
             900)
-        require("[trainer] resumed from step 20" in out
+        require(f"[trainer] resumed from step {first}" in out
                 and "mesh: 2x1 (data x model)" in out,
                 f"sharded launch 2x1: did not resume\n{out[-2000:]}")
-        runs["2x1"] = {"seconds": s, "resumed_from": 20, "fit": fit_line(out),
+        runs["2x1"] = {"seconds": s, "resumed_from": first,
+                       "fit": fit_line(out),
                        "loss": float(grab(rf"done: step {n} loss ([\d.]+)",
                                           out, "2x1 train").group(1))}
         out, s = run_launcher("repro_torch.launch.train",
@@ -2510,7 +2533,8 @@ def phase_fleet_launch(smi):
         t0 = time.perf_counter()
         rcs, outs = run_fleet(
             [[sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-              "qwen2-0.5b", "--train-steps", "20", "--head", "lss-sharded",
+              "qwen2-0.5b", "--train-steps", str(LAUNCH_TRAIN_STEPS),
+              "--head", "lss-sharded",
               *extra, "--coordinator", f"127.0.0.1:{port}",
               "--num-processes", "2", "--process-id", str(i)]
              for i in range(2)], timeout, "fleet_launch")
@@ -3255,22 +3279,6 @@ def ctr_batch(cfg):
             "labels": (rng.random(ZOO_BATCH) < 0.3).astype(np.int32)}
 
 
-def ctr_logits(params, batch, cfg):
-    if cfg.kind == "deepfm":
-        return recsys.deepfm_logits(params, batch["ids"], cfg)
-    if cfg.kind == "autoint":
-        return recsys.autoint_logits(params, batch["ids"], cfg)
-    return recsys.dien_logits(params, batch, cfg)
-
-
-def ctr_loss(params, batch, cfg):
-    """The JAX package's CTR loss (its train cells' ``_ctr_loss``)."""
-    lg = ctr_logits(params, batch, cfg)
-    y = batch["labels"].float()
-    return torch.mean(lg.clamp(min=0) - lg * y
-                      + torch.log1p(torch.exp(-lg.abs())))
-
-
 def zoo_step_one(name, params, forward, loss_fn, out_shape, smi):
     """One forward and one loss-and-gradient step: finite, the forward's
     shape, a finite gradient of every parameter's shape; host ms of each
@@ -3365,6 +3373,202 @@ def phase_zoo_step(dev, smi):
     emit({"phase": "zoo_step", "batch": ZOO_BATCH, "models": rows,
           "seconds": time.perf_counter() - t_phase, "device": smi})
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- cells --
+
+_CELL_DRYRUN = r"""
+import json, logging, sys
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+dryrun.start_fake_fleet(1)
+mesh = make_mesh((1, 1), ("data", "model"))
+out = {}
+for arch, shape, dims in json.loads(sys.argv[1]):
+    out[f"{arch}/{shape}"] = dryrun.run_cell(arch, shape, False, None,
+                                             mesh=mesh, dims=dims)
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def start_cell_dryrun(cells, path):
+    """The dry-run of ``cells`` (``(arch, shape, dims)``) on a fake one-rank
+    fleet, in a process of its own (the fake group is global to a
+    process; this one holds a NCCL group) that touches no card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    return subprocess.Popen([sys.executable, "-c", _CELL_DRYRUN,
+                             json.dumps(cells), path], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def run_cell_on_card(dev, mesh, arch, shape, dims):
+    """``build_cell`` on the one-rank ``mesh``, its args drawn on the card
+    from seed 0 (whole tensors: a one-rank mesh's shards), ``fn`` timed
+    (median host ms of 20 after a warm-up, to ``torch.cuda.synchronize``)
+    -> (cell, args, output, ms, peak allocated MB)."""
+    cell = build_cell(arch, shape, mesh, dims=dims)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = cell.init_args(torch.Generator(dev).manual_seed(SEED), dev)
+    out = cell.fn(*args)
+    ms = host_ms(lambda: cell.fn(*args))
+    torch.cuda.synchronize()
+    return cell, args, out, ms, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def cell_lss_check(q, index, top_k, what):
+    """The cell's LSS head on its one shard: the kernel against its plain
+    version on ``q``'s rows with hash margin > MARGIN_EPS."""
+    t = index.tables
+    rows, check, _ = compare_lss_topk(
+        augment_queries(q.float()).contiguous(), index.theta[0],
+        t.table_ids[0], index.w_bucketed[0], None, top_k)
+    require(rows.mean() > 1 - MAX_EXCLUDED_FRAC, f"{what}: too many rows "
+            f"within the hash margin")
+    return check
+
+
+def phase_cells(dev, smi, counters):
+    """``launch.steps.build_cell``'s cells on the card: qwen2-0.5b
+    train_4k (one AdamW step, global_batch cut from 256 to what one card
+    holds: CELL_TRAIN_BATCH, halved on running out of memory) and
+    decode_32k (full width and depth: 128 slots x 32,768 positions, a
+    51.5 GB bf16 cache, the step attending over all of it, the LSS head
+    at K = 10 through ``lss_topk``), bert4rec serve_p99 (512 rows against
+    1,000,000 items, K = 12, through ``lss_topk``), deepfm serve_p99 and
+    gcn-cora molecule.  Each on a one-rank mesh (a world-1 NCCL group),
+    its args from seed 0, ``fn`` timed, and the same cell at the same cut
+    dry-run (``launch.dryrun``, a fake one-rank fleet in a subprocess of
+    one thread, started once the host-bound cells are timed, the train
+    cell at CELL_TRAIN_BATCH and again at the cut if the search made
+    one): the three roofline terms
+    on H100 figures, the bottleneck, ``useful_ratio``, and ``mfu`` =
+    model_flops / (measured s x the peak of the cell's dtype).  The
+    ``lss_topk`` of the decode and BERT4Rec cells against its plain
+    version (outside the counts)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cells_dryrun_")
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    mesh = make_training_mesh((1, 1)).mesh
+    results, cuts = {}, {}
+    reset(counters)
+    checks = {}
+    for arch, shape in CELLS[1:]:
+        key = f"{arch}/{shape}"
+        cell, args, out, ms, peak = run_cell_on_card(dev, mesh, arch, shape,
+                                                     None)
+        cfg = get_arch(arch).model_cfg
+        with uncounted(counters):
+            if shape == "decode_32k":        # the step's q, written again
+                checks[key] = cell_lss_check(T.decode_step(
+                    args[0], args[1], args[2], cfg)[0], args[3], 8, key)
+            elif arch == "bert4rec":
+                checks[key] = cell_lss_check(recsys.bert4rec_encode(
+                    args[0], args[1], cfg)[:, -1], args[2], 10, key)
+        outs = ((out[1]["loss"],) if cell.donate_state
+                else out[:2] if isinstance(out, tuple) else (out,))
+        require(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+                f"cells {key}: a non-finite output")
+        cuts[key] = {}
+        results[key] = (cell, ms, peak)
+        del cell, args, out, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the dry-runs trace on the host while the card runs the train cell (a
+    # step of seconds, bound by the card), not while the host-bound cells
+    # above are timed: the train cell at the batch the search starts from
+    # (again below if the search cuts it further)
+    dims = {"qwen2-0.5b/train_4k": {"global_batch": CELL_TRAIN_BATCH}}
+    dry = [start_cell_dryrun([(*c, dims.get("/".join(c))) for c in CELLS],
+                             os.path.join(tmp, "dryrun.json"))]
+    batch = CELL_TRAIN_BATCH
+    while True:
+        try:
+            results["qwen2-0.5b/train_4k"] = run_cell_on_card(
+                dev, mesh, "qwen2-0.5b", "train_4k", {"global_batch": batch})
+            break
+        except torch.cuda.OutOfMemoryError:
+            results.pop("qwen2-0.5b/train_4k", None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            require(batch > 1, "cells: one train_4k row does not fit")
+            batch //= 2
+    cuts["qwen2-0.5b/train_4k"] = {"global_batch": [
+        256, batch, f"a step of {batch * 2} rows ran out of the card's "
+        f"80 GB (with each layer rematerialised: its input held, its "
+        f"activations made again in the backward pass)"
+        if batch < CELL_TRAIN_BATCH else "start of the search"]}
+    if batch < CELL_TRAIN_BATCH:
+        dry.append(start_cell_dryrun(
+            [("qwen2-0.5b", "train_4k", {"global_batch": batch})],
+            os.path.join(tmp, "dryrun_train.json")))
+    r = results.pop("qwen2-0.5b/train_4k")
+    train_loss = float(r[2][1]["loss"])
+    require(np.isfinite(train_loss), "cells train_4k: loss not finite")
+    results["qwen2-0.5b/train_4k"] = r[:1] + r[3:]
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = read(counters)
+    shutdown_distributed()
+    t_end = time.monotonic() + CELL_DRYRUN_TIMEOUT_S
+    for p in dry:
+        try:
+            log = p.communicate(timeout=max(1.0, t_end - time.monotonic()))[0]
+        except subprocess.TimeoutExpired:
+            for q in dry:
+                q.kill()
+            raise SmokeFailure("cells: the dry-run outlived "
+                               f"{CELL_DRYRUN_TIMEOUT_S} s") from None
+        require(p.returncode == 0, f"cells: the dry-run failed: "
+                f"{log[-3000:]}")
+    recs = json.load(open(os.path.join(tmp, "dryrun.json")))
+    if batch < CELL_TRAIN_BATCH:
+        recs.update(json.load(open(os.path.join(tmp, "dryrun_train.json"))))
+    rows = []
+    for arch, shape in CELLS:
+        key = f"{arch}/{shape}"
+        cell, ms, peak = results[key]
+        rec = recs[key]
+        roof = rec["roofline"]
+        cfg = get_arch(arch).model_cfg
+        dtype = str(getattr(cfg, "dtype", torch.float32)).replace("torch.",
+                                                                  "")
+        row = {"cell": key, "ms": ms,
+               "t_compute": roof["t_compute"], "t_memory": roof["t_memory"],
+               "t_collective": roof["t_collective"],
+               "roofline_ms": 1e3 * max(roof["t_compute"], roof["t_memory"],
+                                        roof["t_collective"]),
+               "bottleneck": roof["bottleneck"], "dtype": dtype,
+               "mfu": cell.model_flops / (ms / 1e3 * peak_flops(dtype)),
+               "useful_ratio": roof["useful_ratio"],
+               "model_flops": cell.model_flops,
+               "traced_flops": rec["cost"]["flops"],
+               "traced_bytes": rec["cost"]["bytes_accessed"],
+               "traced_peak_gb": rec["memory"]["total_per_device_gb"],
+               "traced_kernels": rec["cost"]["kernels"],
+               "peak_allocated_mb": peak, "cut": cuts[key],
+               "comment": cell.comment}
+        if key in checks:
+            row["lss_topk_check"] = checks[key]
+        if key == "qwen2-0.5b/train_4k":
+            row["loss"] = train_loss
+        rows.append(row)
+        emit({"phase": "cells", **row, "device": smi})
+    # the cells' one kernel: lss_topk, in the decode and BERT4Rec heads
+    # (building their indexes hashes with the plain matmul, and the
+    # unfused bucket_logits path is not theirs)
+    require(launches["lss_topk_cuda"] > 0, f"cells: lss_topk was not "
+            f"launched ({launches})")
+    emit({"phase": "cells_done", "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "device": smi})
+    return launches
 
 
 def zoo_kernel_entries(moe, arctic, bert):
@@ -3966,8 +4170,8 @@ def phase_launch(smi):
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    base = ["--arch", "qwen2-0.5b", "--train-steps", "20", "--head", "lss",
-            "--steps", "32", "--refresh-interval", "1"]
+    base = ["--arch", "qwen2-0.5b", "--train-steps", str(LAUNCH_TRAIN_STEPS),
+            "--head", "lss", "--steps", "32", "--refresh-interval", "1"]
     runs, launches = {}, {}
     out, secs = run_launcher(
         "repro_torch.launch.serve",
@@ -4012,15 +4216,16 @@ def phase_launch(smi):
         "launches": launches["serve_async"]}
 
     with tempfile.TemporaryDirectory(prefix="launch_train_") as tmp:
-        args = ["--arch", "qwen2-0.5b", "--steps", "20", "--ckpt-dir", tmp]
+        n = LAUNCH_TRAIN_STEPS
+        args = ["--arch", "qwen2-0.5b", "--steps", str(n), "--ckpt-dir", tmp]
         first, s1 = run_launcher("repro_torch.launch.train", args, 900)
         again, s2 = run_launcher("repro_torch.launch.train", args, 900)
-    loss = grab(r"done: step 20 loss ([\d.]+)", first, "train").group(1)
-    require("[trainer] resumed from step 20" in again
-            and "resumed at step 20: nothing left to train" in again,
+    loss = grab(rf"done: step {n} loss ([\d.]+)", first, "train").group(1)
+    require(f"[trainer] resumed from step {n}" in again
+            and f"resumed at step {n}: nothing left to train" in again,
             f"launch train: the rerun did not resume:\n{again[-2000:]}")
     runs["train"] = {"seconds": [s1, s2], "loss": float(loss),
-                     "rerun": "resumed at step 20"}
+                     "rerun": f"resumed at step {n}"}
     emit({"phase": "launch", **runs, "launch_qps": LAUNCH_QPS,
           "seconds": time.perf_counter() - t_phase, "device": smi})
     return launches
@@ -4120,7 +4325,7 @@ def main() -> int:
     line["kernels"].append(bucket_logits_entry(learned, q_aug0, u_launches))
     res = phase_train_wol(dev, counters)
     # the paper's experiments at the reference's full-pass sizes
-    # (BENCH_FAST=0)
+    # (BENCH_FAST=0; Table 2 at the fast pass's)
     paper_tables.FAST = False
     phase_paper_table1_full(dev, smi, res, counters)
     serve_launches = phase_serve_engine(dev, smi, res["model"], res["index"],
@@ -4172,6 +4377,7 @@ def main() -> int:
     arctic = phase_arctic_decode(dev, smi, counters)
     bert = phase_bert4rec_serve(dev, smi, counters)
     phase_zoo_step(dev, smi)
+    cells_launches = phase_cells(dev, smi, counters)
     for entry, name in zip(line["kernels"][:2], ("simhash_codes_cuda",
                                                   "lss_topk_cuda")):
         entry["launches_by_path"].update(
@@ -4181,6 +4387,9 @@ def main() -> int:
     line["kernels"][1]["launches_by_path"].update(
         moe_decode_profiler=moe["device"],
         arctic_decode_profiler=arctic["device"])
+    for entry in line["kernels"]:
+        entry.setdefault("launches_by_path", {})["cells"] = \
+            cells_launches[entry["name"] + "_cuda"]
     line["kernels"].extend(zoo_kernel_entries(moe, arctic, bert))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(line)

@@ -4,7 +4,7 @@ the four recommenders, in the JAX package's order."""
 
 import importlib
 
-__all__ = ["ARCH_MODULES", "ALL_ARCHS", "get_config"]
+__all__ = ["ARCH_MODULES", "ALL_ARCHS", "get_config", "all_cells"]
 
 ARCH_MODULES = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
@@ -26,3 +26,9 @@ def get_config(arch_id: str):
     if arch_id not in ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ALL_ARCHS}")
     return importlib.import_module(ARCH_MODULES[arch_id]).CONFIG
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """All 40 (arch, shape) cells of the dry-run, in the JAX package's
+    order: each architecture's shapes in its config's order."""
+    return [(a, s) for a in ALL_ARCHS for s in get_config(a).shapes]

@@ -92,7 +92,7 @@ def score_path(dev: torch.device) -> dict:
 def decode_path(dev: torch.device, train_steps: int
                 ) -> tuple[LMDecoder, np.ndarray, dict]:
     print("== decode path: LMDecoder on the same Engine ==")
-    cfg = reduced_model_cfg("qwen2-0.5b")._replace(vocab=2048)
+    cfg = reduced_model_cfg("qwen2-0.5b")._replace(vocab=2048, remat=False)
     toks = lm_dataset(5, 200_000, cfg.vocab, 33)
     tc = TrainConfig(lr=3e-3, warmup_steps=20, total_steps=train_steps,
                      ckpt_every=10 ** 9)

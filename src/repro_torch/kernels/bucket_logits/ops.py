@@ -24,7 +24,7 @@ from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref
 from repro_torch.kernels.registry import kernel_op
 
 __all__ = ["bucket_logits", "bucket_logits_cuda", "bucket_logits_op",
-           "BucketLogitsPlan", "bucket_logits_plan"]
+           "BucketLogitsPlan", "bucket_logits_plan", "bucket_logits_cost"]
 
 bucket_logits_op = kernel_op("bucket_logits")
 bucket_logits_op.register_impl("ref", bucket_logits_ref)
@@ -173,6 +173,30 @@ def bucket_logits_cuda(q: torch.Tensor, w_slabs: torch.Tensor,
 
 
 bucket_logits_cuda.launches = 0
+
+
+def _fake(q, w_slabs, slab_ids):
+    return q.new_empty((q.shape[0], slab_ids.shape[1], w_slabs.shape[1]),
+                       dtype=torch.float32)
+
+
+def bucket_logits_cost(q, w_slabs, slab_ids):
+    """Every (query, table)'s slab distinct (at most the S slabs), each
+    read whole; q and the slab ids read, the logits written; 2 d flops a
+    logit, in fp32."""
+    bsz, d = q.shape
+    n_slabs, cap, _ = w_slabs.shape
+    n_tables = slab_ids.shape[1]
+    n = min(bsz * n_tables, n_slabs)
+    return ({"float32": 2.0 * bsz * n_tables * cap * d},
+            float(n * cap * d * w_slabs.element_size()
+                  + bsz * d * q.element_size() + 4 * bsz * n_tables
+                  + 4 * bsz * n_tables * cap))
+
+
+bucket_logits_op.define(
+    "(Tensor q, Tensor w_slabs, Tensor slab_ids) -> Tensor",
+    _fake, bucket_logits_cost)
 
 
 def bucket_logits(q: torch.Tensor, w_slabs: torch.Tensor,

@@ -37,7 +37,7 @@ from repro_torch.kernels.registry import kernel_op
 
 __all__ = ["lss_topk", "lss_topk_cuda", "lss_topk_op", "LssTopkLayout",
            "lss_topk_layout", "lss_topk_smem_bytes", "lss_topk_scratch_bytes",
-           "lss_topk_blocks_per_sm"]
+           "lss_topk_blocks_per_sm", "lss_topk_cost"]
 
 lss_topk_op = kernel_op("lss_topk")
 lss_topk_op.register_impl("ref", lss_topk_ref)
@@ -216,6 +216,39 @@ def lss_topk_cuda(q_aug: torch.Tensor, theta: torch.Tensor,
 
 
 lss_topk_cuda.launches = 0
+
+
+def _fake(q_aug, theta, table_ids, w_bucketed, *, top_k, dedup=None,
+          w_scale=None):
+    bsz = q_aug.shape[0]
+    c = table_ids.shape[0] * table_ids.shape[2]
+    return (q_aug.new_empty((bsz, top_k), dtype=torch.float32),
+            q_aug.new_empty((bsz, top_k), dtype=torch.int32),
+            q_aug.new_empty((bsz,), dtype=torch.int32),
+            q_aug.new_empty((bsz, c), dtype=torch.int32))
+
+
+def lss_topk_cost(q_aug, theta, table_ids, w_bucketed, *, top_k,
+                  dedup=None, w_scale=None):
+    """``chip_smoke.py``'s bound with every query's L slabs distinct (at
+    most the L 2^K slabs) and every slot occupied: each such slab's P ids
+    and P rows (+ an fp32 scale a row for int8) read once, the queries and
+    theta read, the outputs written; 2 d fp32 flops a slot a query.  The
+    data-aware bound never exceeds it."""
+    n_tables, n_buckets, cap = table_ids.shape
+    bsz, d = q_aug.shape
+    c = n_tables * cap
+    n = min(bsz * n_tables, n_tables * n_buckets)
+    row = d * w_bucketed.element_size() + (4 if w_scale is not None else 0)
+    nbytes = (n * cap * 4 + n * cap * row + 4 * bsz * d + 4 * theta.numel()
+              + 4 * bsz * c + 8 * bsz * top_k + 4 * bsz)
+    return {"float32": 2.0 * d * bsz * c}, float(nbytes)
+
+
+lss_topk_op.define(
+    "(Tensor q_aug, Tensor theta, Tensor table_ids, Tensor w_bucketed, *, "
+    "int top_k, str? dedup=None, Tensor? w_scale=None) "
+    "-> (Tensor, Tensor, Tensor, Tensor)", _fake, lss_topk_cost)
 
 
 def lss_topk(q_aug: torch.Tensor, theta: torch.Tensor,

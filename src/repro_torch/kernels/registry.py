@@ -19,6 +19,19 @@ come back with a second one for CUDA tensors (Triton).
 an op that every implementation honours, resolved the same way:
 explicit argument > process override > own env var > auto callback.
 
+Dispatcher ops: each kernel is also a ``torch.library`` op,
+``torch.ops.repro_torch.<name>`` (:meth:`KernelOp.define`), whose CPU
+kernel is the ``ref`` implementation and whose CUDA kernel is the
+``cuda`` one, with a fake (shape) implementation, so that a fake or
+``meta`` tensor passes through the op as one call: the dry-run
+(``repro_torch.launch.dryrun``) traces the card's route that way and
+counts each call at the op's registered cost (:func:`op_cost`: the
+flops by dtype and the bytes one call must move, from its shapes only).
+:meth:`KernelOp.__call__` sends only fake and ``meta`` tensors through
+the dispatcher op; tensors that hold data go straight to the resolved
+implementation, which saves the host the dispatcher's boxed call on
+every launch of an eager, host-bound serving step.
+
 Dispatch log: the JAX log appends once per trace; in eager PyTorch every
 call dispatches, so the log here is a bounded ``deque`` of the most
 recent ``(name, choice)`` entries, beside per-entry counters that count
@@ -33,6 +46,7 @@ from contextlib import contextmanager
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 __all__ = [
     "IMPLS", "LOG_MAXLEN", "KernelOp", "kernel_op", "get_op",
@@ -40,7 +54,7 @@ __all__ = [
     "dispatch_log", "dispatch_counts", "last_dispatch",
     "reset_dispatch_log", "KernelStrategy", "kernel_strategy",
     "get_strategy", "list_strategies", "set_default_strategy",
-    "use_strategy",
+    "use_strategy", "op_cost",
 ]
 
 IMPLS = ("ref", "cuda")
@@ -50,12 +64,22 @@ _ops: dict[str, "KernelOp"] = {}
 _log: collections.deque[tuple[str, str]] = collections.deque(maxlen=LOG_MAXLEN)
 _counts: collections.Counter[tuple[str, str]] = collections.Counter()
 _strategies: dict[str, "KernelStrategy"] = {}
+_costs: dict[str, Callable] = {}
+NAMESPACE = "repro_torch"
+_lib = None         # the namespace's torch.library.Library
 _default_strategies: dict[str, str] = {}
 
 
 def _record(name: str, choice: str) -> None:
     _log.append((name, choice))
     _counts[(name, choice)] += 1
+
+
+def _is_abstract(args, kwargs) -> bool:
+    """Whether the call's tensors hold no data (fake or ``meta``)."""
+    return any(isinstance(a, FakeTensor) or (isinstance(a, torch.Tensor)
+                                             and a.is_meta)
+               for a in (*args, *kwargs.values()))
 
 
 def _device_of(args, kwargs) -> torch.device:
@@ -71,6 +95,35 @@ class KernelOp:
     def __init__(self, name: str):
         self.name = name
         self.impls: dict[str, Callable] = {}
+        self.dispatcher_op = None
+
+    def define(self, schema: str, fake: Callable, cost: Callable) -> None:
+        """Register the op with the dispatcher as ``repro_torch::<name>``
+        (``schema``: its arguments and results, as ``torch.library``
+        writes them): the ``ref`` impl its CPU kernel, the ``cuda`` impl
+        its CUDA kernel, ``fake`` its shape function.  ``cost(*args,
+        **kwargs) -> (flops_by_dtype, bytes)`` is what one call costs
+        (see :func:`op_cost`).  The kernels look the impls up at each
+        call, so an impl registered later (a test's wrapper) is the one
+        that runs.  (A ``torch.library.Library`` op, not a
+        ``torch.library.custom_op``: the latter's first call imports
+        ``torch._dynamo`` and ``DTensor``: ~2 s a process on a CPU host,
+        ~7 s on an H100 host, which every launcher process paid.)"""
+        global _lib
+        if _lib is None:
+            _lib = torch.library.Library(NAMESPACE, "DEF")
+        _lib.define(self.name + schema)
+        for impl, key in (("ref", "CPU"), ("cuda", "CUDA")):
+            _lib.impl(self.name, self._kernel(impl), key)
+        torch.library.register_fake(f"{NAMESPACE}::{self.name}", fake,
+                                    lib=_lib)
+        self.dispatcher_op = getattr(getattr(torch.ops, NAMESPACE), self.name)
+        _costs[self.name] = cost
+
+    def _kernel(self, impl: str) -> Callable:
+        def run(*args, **kwargs):
+            return self.impls[impl](*args, **kwargs)
+        return run
 
     def impl(self, impl_name: str) -> Callable:
         """Decorator: register ``fn`` as the ``impl_name`` implementation."""
@@ -86,6 +139,10 @@ class KernelOp:
         self.impls[impl_name] = fn
 
     def __call__(self, *args, impl: str | None = None, **kwargs):
+        if _is_abstract(args, kwargs):
+            # a fake or meta tensor (a dry-run's trace): the dispatcher op
+            # runs the shape function, one op of the card's route
+            return self.dispatcher_op(*args, **kwargs)
         choice = resolve_impl(self.name, impl, _device_of(args, kwargs))
         _record(self.name, choice)
         return self.impls[choice](*args, **kwargs)
@@ -110,6 +167,18 @@ def get_op(name: str) -> KernelOp:
 
 def list_ops() -> list[str]:
     return sorted(_ops)
+
+
+def op_cost(name: str, *args, **kwargs) -> tuple[dict[str, float], float]:
+    """What one call of the kernel op ``name`` on these arguments (real,
+    fake or ``meta`` tensors) costs, from their shapes only: ``({dtype
+    name: flops}, bytes)``, the flops it does and the bytes it must move
+    (each input read once, each output written once), the same terms as
+    the bound ``chip_smoke.py`` reckons for the kernel, taken at the most
+    the shapes allow where the work depends on the data."""
+    if name not in _costs:
+        raise KeyError(f"kernel op {name!r} has no registered cost")
+    return _costs[name](*args, **kwargs)
 
 
 def resolve_impl(op_name: str, requested: str | None = None,

@@ -22,7 +22,7 @@ from repro_torch.kernels.registry import kernel_op
 from repro_torch.kernels.simhash_codes.ref import simhash_codes_ref
 
 __all__ = ["simhash_codes", "simhash_codes_cuda", "simhash_codes_op",
-           "SimhashCodesPlan", "simhash_codes_plan"]
+           "SimhashCodesPlan", "simhash_codes_plan", "simhash_codes_cost"]
 
 simhash_codes_op = kernel_op("simhash_codes")
 simhash_codes_op.register_impl("ref", simhash_codes_ref)
@@ -109,6 +109,23 @@ def simhash_codes_cuda(x: torch.Tensor, theta: torch.Tensor, k_bits: int,
 
 
 simhash_codes_cuda.launches = 0
+
+
+def _fake(x, theta, k_bits, n_tables):
+    return x.new_empty((x.shape[0], n_tables), dtype=torch.int32)
+
+
+def simhash_codes_cost(x, theta, k_bits, n_tables):
+    """``[B, d] x [d, K*L]`` in fp32: x, theta read, the codes written."""
+    bsz, d = x.shape
+    kl = k_bits * n_tables
+    return ({"float32": 2.0 * bsz * d * kl},
+            4.0 * (bsz * d + d * kl + bsz * n_tables))
+
+
+simhash_codes_op.define(
+    "(Tensor x, Tensor theta, int k_bits, int n_tables) -> Tensor",
+    _fake, simhash_codes_cost)
 
 
 def simhash_codes(x: torch.Tensor, theta: torch.Tensor, k_bits: int,

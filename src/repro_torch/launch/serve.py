@@ -243,7 +243,7 @@ def main(argv: list[str] | None = None) -> dict:
     spec = get_config(args.arch)
     cfg = reduced_model_cfg(args.arch) if args.reduced else spec.model_cfg
     cfg = cfg._replace(vocab=min(cfg.vocab, 4096) if args.reduced
-                       else cfg.vocab)
+                       else cfg.vocab, remat=False)   # 64 x 32 tokens fit
 
     toks = lm_dataset(0, 150_000, cfg.vocab, 33)
     tc = TrainConfig(lr=3e-3, warmup_steps=15,

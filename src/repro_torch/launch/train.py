@@ -116,7 +116,10 @@ def main(argv: list[str] | None = None) -> dict:
 
 def _train(args, shape) -> dict:
     spec = get_config(args.arch)
-    cfg = reduced_model_cfg(args.arch) if args.reduced else spec.model_cfg
+    # the launcher's batches fit without rematerialising: each layer's
+    # forward runs once (the cells of launch.steps keep JAX's remat)
+    cfg = (reduced_model_cfg(args.arch) if args.reduced
+           else spec.model_cfg)._replace(remat=False)
     mesh = param_specs = None
     if shape is not None:
         axes = ("data", "model")[:len(shape)]

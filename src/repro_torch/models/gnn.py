@@ -9,6 +9,14 @@ the JAX package has ``segment_sum``)::
 The scatter adds in another order than JAX's ``segment_sum``, so the two
 agree within a tolerance, not bit for bit.
 
+On a mesh (``DTensor`` leaves: the parameters replicated, as
+``param_specs`` lays them out, the batch split over ``data``), the graph
+is gathered whole on every rank (:func:`gathered`: one all-gather a
+batch leaf) and every rank runs the same full-graph step, so the
+gradients are whole on every rank and need no reduction: message passing
+reads any node's neighbours, which a row split of the nodes would make a
+gather of its own.
+
 Execution shapes (the reference's cells): a full-batch step on ``[N, F]``
 features and an ``[E, 2]`` edge list; layer-wise neighbour sampling
 (:func:`sampled_subgraph`) then GCN on the sampled block; batched small
@@ -22,10 +30,12 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.utils.sharding import P
+from repro_torch.utils.sharding import P, full_tensor, to_local
+from repro_torch.utils.tree import tree_map
 
 __all__ = ["GCNConfig", "init_params", "param_specs", "forward", "loss",
-           "molecule_loss", "sample_block", "sampled_subgraph"]
+           "molecule_loss", "gathered", "seeded_generator", "sample_block",
+           "sampled_subgraph"]
 
 
 class GCNConfig(NamedTuple):
@@ -106,8 +116,17 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return logz - gold
 
 
+def gathered(params: dict, batch: dict) -> tuple[dict, dict]:
+    """``(params, batch)`` as plain tensors: each ``DTensor`` batch leaf
+    gathered whole, each parameter's local tensor (its gradient comes
+    back laid out as the parameter).  Plain trees pass as they are."""
+    return (tree_map(to_local, params),
+            {k: full_tensor(v) for k, v in batch.items()})
+
+
 def loss(params: dict, batch: dict, cfg: GCNConfig) -> torch.Tensor:
     """batch: x [N,F], edges [E,2], labels [N] (-1 = not in train mask)."""
+    params, batch = gathered(params, batch)
     logits = forward(params, batch["x"], batch["edges"], cfg)
     mask = batch["labels"] >= 0
     return (_nll(logits, batch["labels"]) * mask).sum() / mask.sum().clamp(
@@ -117,12 +136,28 @@ def loss(params: dict, batch: dict, cfg: GCNConfig) -> torch.Tensor:
 def molecule_loss(params: dict, batch: dict, cfg: GCNConfig) -> torch.Tensor:
     """Batched small graphs: x [G,n,F], edges [G,e,2], labels [G] (one
     forward a graph, where JAX maps)."""
+    params, batch = gathered(params, batch)
     logits = torch.stack([forward(params, x, e, cfg)
                           for x, e in zip(batch["x"], batch["edges"])])
     return _nll(logits, batch["labels"]).mean()
 
 
 # -------------------------------------------------------- neighbor sampler --
+
+def seeded_generator(seed: torch.Tensor) -> torch.Generator:
+    """A generator on ``seed``'s device seeded with its value (a 0-d int
+    tensor: the sampled cell's seed, where JAX takes a key).  A fake or
+    ``meta`` seed has no value: the generator is then left unseeded,
+    which a fake or meta draw ignores."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    seed = to_local(seed)
+    gen = torch.Generator(device=seed.device if seed.device.type != "meta"
+                          else "cpu")
+    if not is_fake(seed) and seed.device.type != "meta":
+        gen.manual_seed(int(seed))
+    return gen
+
 
 def sample_block(generator: torch.Generator, indptr: torch.Tensor,
                  indices: torch.Tensor, seeds: torch.Tensor, fanout: int

@@ -23,6 +23,32 @@ Supports the two MoE archs:
 The JAX package's group path (``n_groups`` > 1, a ``vmap`` over groups)
 and its one-group path compute the same function; here both run as one
 batched code path over a leading group axis (one group: ``G = 1``).
+
+On a mesh (``x`` a ``DTensor``; the trainer's (data, model) mesh), the
+layer runs as GSPMD partitions the JAX one, in local pieces:
+
+* tokens: each data shard dispatches its own tokens where the groups
+  split evenly over the data shards (``n_groups`` a multiple of their
+  number, the train and prefill cells' groups = data shards), so the
+  router, the sort, ``searchsorted`` and the scatter into the trash row
+  are local; otherwise (one group, the decode cells) the tokens are
+  gathered whole on every rank first.  Every model rank routes the same
+  tokens.
+* experts: split over ``model``; a rank runs its own experts' SwiGLU over
+  their capacity buffers and combines only the slots routed to them, so
+  its output is a partial sum, reduced over ``model`` by one all-reduce
+  of the tokens' activations.  With ``moe_fsdp`` (arctic) the expert
+  tensors' d_ff is split over ``data`` too and gathered whole over
+  ``data`` before use (its gradient is reduced back).
+* the balance loss: the means over all tokens, each an all-reduce of an
+  [Ep] vector.
+
+So one step's collectives are the all-reduce of the output (and of its
+gradient's partial sums), the [Ep] all-reduces of the balance loss, the
+gathers of the tokens (one-group path) and of the FSDP expert tensors,
+and the gradients' reductions over ``data``.  ``DTensor`` has no
+sharding rule for argsort or ``searchsorted``; none of them sees a
+``DTensor``.
 """
 
 from __future__ import annotations
@@ -34,6 +60,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.topk import topk_lowest_index
 from repro_torch.device import resolve_device
+from repro_torch.utils.sharding import (P, is_dtensor, maybe_shard, replicate,
+                                        shard_range)
 
 __all__ = ["MoEConfig", "router_topk", "dispatch_indices", "moe_ffn",
            "moe_ffn_dense_oracle", "init_moe_params"]
@@ -61,6 +89,14 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEConfig
     Padded experts never win (logits -1e30); ties go to the lowest expert
     index, as ``jax.lax.top_k`` breaks them.
     """
+    top_e, top_p, me, ce = _route(x, w_router, cfg)
+    return top_e, top_p, cfg.n_experts * torch.sum(me * ce)
+
+
+def _route(x, w_router, cfg: MoEConfig):
+    """The routing of :func:`router_topk`, with the balance loss's two
+    means (the router's mean probability ``me`` and the routed fraction
+    ``ce``, each [Ep]) in place of the loss."""
     logits = x.float() @ w_router.float()                      # [T, Ep]
     if cfg.n_experts_padded > cfg.n_experts:
         pad = torch.arange(cfg.n_experts_padded,
@@ -78,8 +114,7 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEConfig
         0, top_e.reshape(-1), torch.full((top_e.numel(),),
                                          1.0 / top_e.numel(),
                                          device=probs.device))
-    aux = cfg.n_experts * torch.sum(me * ce)
-    return top_e, top_p.to(x.dtype), aux
+    return top_e, top_p.to(x.dtype), me, ce
 
 
 def dispatch_indices(top_e: torch.Tensor, n_experts: int, capacity: int
@@ -116,13 +151,26 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig
 
     params: router [D, Ep], w_gate/w_up [Ep, D, F], w_down [Ep, F, D].
     """
+    if is_dtensor(x):
+        return _moe_ffn_mesh(x, params, cfg)
+    t = x.shape[0]
+    top_e, top_p, aux = router_topk(x, params["router"], cfg)
+    out = _dispatch_combine(x, top_e, top_p, params["w_gate"],
+                            params["w_up"], params["w_down"], cfg,
+                            cfg.n_groups if t % cfg.n_groups == 0 else 1, 0)
+    return out, aux
+
+
+def _dispatch_combine(x, top_e, top_p, w_gate, w_up, w_down,
+                      cfg: MoEConfig, g_n: int, e_lo: int) -> torch.Tensor:
+    """Dispatch ``x`` [T, D] into ``g_n`` groups' capacity buffers, run the
+    experts ``[e_lo, e_lo + w_gate.shape[0])`` (the weights given), and
+    combine the slots routed to them -> [T, D] (on one device every
+    expert: the whole output)."""
     t, d = x.shape
     ep, k = cfg.n_experts_padded, cfg.top_k
-    g_n = cfg.n_groups if t % cfg.n_groups == 0 else 1
     tg = t // g_n
     capacity = max(8, int(cfg.capacity_factor * tg * k / ep))
-    top_e, top_p, aux = router_topk(x, params["router"], cfg)
-
     pos, keep = dispatch_indices(top_e.reshape(g_n, tg, k), ep,
                                  capacity)                     # [G, Tg*k]
     xk = x.reshape(g_n, tg, d).repeat_interleave(k, dim=1)     # [G, Tg*k, D]
@@ -131,21 +179,95 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig
     buf = x.new_zeros((g_n, ep * capacity + 1, d))
     buf.scatter_(1, pos[..., None].expand(-1, -1, d),
                  torch.where(keep[..., None], xk, 0))
+    e_n = w_gate.shape[0]
     h = buf[:, :-1].reshape(g_n, ep, capacity, d)              # [G, E, C, D]
+    if e_n != ep:
+        h = h[:, e_lo:e_lo + e_n]
+        lo = e_lo * capacity
+        mine = (pos >= lo) & (pos < lo + e_n * capacity)
+        keep = keep & mine
+        pos = torch.where(mine, pos - lo, e_n * capacity)
 
-    # expert SwiGLU over every padded expert's buffer
-    gt = torch.einsum("gecd,edf->gecf", h, params["w_gate"])
-    u = torch.einsum("gecd,edf->gecf", h, params["w_up"])
-    y = torch.einsum("gecf,efd->gecd", F.silu(gt) * u, params["w_down"])
+    # expert SwiGLU over every (local) padded expert's buffer
+    gt = torch.einsum("gecd,edf->gecf", h, w_gate)
+    u = torch.einsum("gecd,edf->gecf", h, w_up)
+    y = torch.einsum("gecf,efd->gecd", F.silu(gt) * u, w_down)
 
     # gather back + weighted combine
-    yk = torch.cat([y.reshape(g_n, ep * capacity, d),
+    yk = torch.cat([y.reshape(g_n, e_n * capacity, d),
                     y.new_zeros((g_n, 1, d))], 1)
     yk = yk.gather(1, pos[..., None].expand(-1, -1, d))        # [G, Tg*k, D]
     yk = torch.where(keep[..., None], yk, 0)
     w = top_p.reshape(g_n, tg * k, 1).to(yk.dtype)
     out = (yk * w).reshape(g_n, tg, k, d).sum(2)
-    return out.reshape(t, d), aux
+    return out.reshape(t, d)
+
+
+def _moe_ffn_mesh(x, params: dict, cfg: MoEConfig):
+    """:func:`moe_ffn` on a mesh (see the module's docstring): ``x`` a
+    ``DTensor`` [T, D], the expert tensors split over ``model`` (and, with
+    ``moe_fsdp``, their d_ff over ``data``)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    t = x.shape[0]
+    dp = mesh.size(names.index("data")) if "data" in names else 1
+    local = cfg.n_groups % dp == 0 and t % cfg.n_groups == 0
+    x = maybe_shard(x, P("data" if local else None, None))
+    tok = tuple(x.placements)                # Shard(0) over data, or not
+    model = names.index("model") if "model" in names else None
+    tp = mesh.size(model) if model is not None else 1
+    split = [p.is_shard() for p in tok]
+    n_split = 1
+    for i, s_ in enumerate(split):
+        if s_:
+            n_split *= mesh.size(i)
+
+    def grad_pl(own):
+        """A local weight's gradient: partial where the tokens are split
+        or the experts contribute partial sums, else its own layout."""
+        return [Partial() if split[i] or (i == model and tp > 1
+                                          and not own[i].is_shard())
+                else own[i] for i in range(mesh.ndim)]
+
+    ws = {n: maybe_shard(params[n], P("model", None, None))  # FSDP d_ff
+          for n in ("w_gate", "w_up", "w_down")}         # gathered whole
+    local_w = {n: w.to_local(grad_placements=grad_pl(tuple(w.placements)))
+               for n, w in ws.items()}
+    # this rank's experts
+    e_lo = shard_range(cfg.n_experts_padded, mesh,
+                       tuple(ws["w_gate"].placements), 0)[0]
+
+    router = params["router"]
+    xl = x.to_local(grad_placements=[
+        Partial() if i == model and tp > 1 else tok[i]
+        for i in range(mesh.ndim)])
+    rl = router.to_local(grad_placements=grad_pl(tuple(router.placements)))
+    top_e, top_p, me, ce = _route(xl, rl, cfg)
+    g_n = cfg.n_groups // dp if local else (
+        cfg.n_groups if t % cfg.n_groups == 0 else 1)
+    out = _dispatch_combine(xl, top_e, top_p, local_w["w_gate"],
+                            local_w["w_up"], local_w["w_down"], cfg, g_n,
+                            e_lo)
+    out_pl = [Partial() if i == model and tp > 1 else tok[i]
+              for i in range(mesh.ndim)]
+    out = DTensor.from_local(out, mesh, out_pl, run_check=False,
+                             shape=x.shape, stride=x.stride())
+    out = maybe_shard(out, P("data" if local else None, None))
+    # the balance loss's means over every token: each rank's share, a
+    # partial sum over the dims that split the tokens and over model (the
+    # model ranks route the same tokens, so each gives 1/tp of its means)
+    scale = 1.0 / (n_split * tp)
+    mean_pl = [Partial() if split[i] or (i == model and tp > 1)
+               else tok[i] for i in range(mesh.ndim)]
+
+    def global_mean(v):
+        return replicate(DTensor.from_local(v * scale, mesh, mean_pl,
+                                            run_check=False))
+
+    aux = cfg.n_experts * torch.sum(global_mean(me) * global_mean(ce))
+    return out, aux
 
 
 def moe_ffn_dense_oracle(x: torch.Tensor, params: dict, cfg: MoEConfig
@@ -169,7 +291,12 @@ def _fill_normal(out: torch.Tensor, generator: torch.Generator,
     ``generator``'s device, one matrix of its last two axes at a time (a
     layer's expert), so that no fp32 copy of the whole tensor exists:
     qwen2-moe's stacked ``w_gate`` in fp32 would be 17.7 GB, and one
-    arctic layer's 17.8 GB."""
+    arctic layer's 17.8 GB.  A fake or ``meta`` ``out`` (a parameter tree
+    built for its shapes) is left as it is."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if out.is_meta or is_fake(out):
+        return out
     flat = out.view(-1, *out.shape[-2:]) if out.dim() > 2 else out[None]
     for i in range(flat.shape[0]):
         x = torch.randn(flat.shape[1:], generator=generator,

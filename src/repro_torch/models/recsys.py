@@ -11,6 +11,16 @@ paper's technique (LSS, :mod:`repro_torch.core`) serves it sub-linearly
 from the last position's hidden (:func:`retrieval_scores` is the exact
 full-catalogue baseline).
 
+On a mesh (``DTensor`` leaves laid out by the ``*_specs``, the batch
+over ``data``), the same code runs: the row-sharded tables (the CTR
+models' unified table, BERT4Rec's items and head) are read through the
+vocab-parallel lookup of :func:`repro_torch.utils.sharding.embedding`
+(each rank looks up the ids among its rows; the rows are summed over
+``model`` by one all-reduce of the looked-up activations, and a table's
+gradient stays on its rows), and the dense layers run on ``DTensor``
+activations.  AutoInt's q, k and v are gathered whole over ``model``
+before their heads are unpacked.
+
 Parameters are plain dicts (lists where the JAX package has lists) with
 the JAX package's names and layout; GRUs run as a Python loop where JAX
 scans.  Draws are N(0, 1) scaled as the JAX package's, on ``generator``'s
@@ -28,7 +38,9 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.utils.sharding import P
+from repro_torch.utils.sharding import (P, embedding, is_dtensor, map_local,
+                                        maybe_shard, mesh_axis_size,
+                                        replicate)
 
 __all__ = ["embedding_lookup", "embedding_bag", "CTRConfig", "field_offsets",
            "init_deepfm", "deepfm_specs", "deepfm_logits", "init_autoint",
@@ -41,7 +53,11 @@ __all__ = ["embedding_lookup", "embedding_bag", "CTRConfig", "field_offsets",
 # ------------------------------------------------------- embedding bags ----
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain row gather ``[V, D] x [...] -> [..., D]`` (one id per field)."""
+    """Plain row gather ``[V, D] x [...] -> [..., D]`` (one id per field);
+    over a ``DTensor`` table, the vocab-parallel lookup, laid out as
+    ``ids``."""
+    if is_dtensor(table):
+        return replicate(embedding(table, ids))
     return table[ids.long()]
 
 
@@ -49,7 +65,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "mean",
                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """EmbeddingBag over ragged bags. ids: ``[B, F]`` padded -1."""
     mask = ids >= 0
-    rows = table[ids.clamp(min=0).long()]                 # [B, F, D]
+    rows = embedding_lookup(table, ids.clamp(min=0))      # [B, F, D]
     if weights is not None:
         rows = rows * weights[..., None].to(rows.dtype)
     rows = torch.where(mask[..., None], rows, 0)
@@ -128,7 +144,8 @@ def field_offsets(cfg: CTRConfig, device: str | torch.device | None = None
 
 
 def _global_ids(ids: torch.Tensor, cfg: CTRConfig) -> torch.Tensor:
-    return ids.long() + field_offsets(cfg, ids.device)[None, :]
+    return map_local(
+        lambda t: t.long() + field_offsets(cfg, t.device)[None, :], ids)
 
 
 def init_deepfm(generator: torch.Generator, cfg: CTRConfig,
@@ -157,7 +174,9 @@ def deepfm_logits(params: dict, ids: torch.Tensor, cfg: CTRConfig
     """ids: int ``[B, n_fields]`` (field-local); returns CTR logit [B]."""
     gids = _global_ids(ids, cfg)
     emb = embedding_lookup(params["table"], gids)          # [B, F, D]
-    lin = params["linear"][gids].sum(-1)                   # [B]
+    lin = (embedding_lookup(params["linear"][:, None], gids)[..., 0]
+           if is_dtensor(params["linear"])
+           else params["linear"][gids]).sum(-1)            # [B]
     # FM second-order: 0.5 * ((sum v)^2 - sum v^2)
     s = emb.sum(1)
     fm = 0.5 * (s.square() - emb.square().sum(1)).sum(-1)
@@ -196,15 +215,24 @@ def autoint_specs(cfg: CTRConfig) -> dict:
 def autoint_logits(params: dict, ids: torch.Tensor, cfg: CTRConfig
                    ) -> torch.Tensor:
     h = embedding_lookup(params["table"], _global_ids(ids, cfg))  # [B, F, D]
+    # on a mesh, a layer's activations whole over model (rows over data):
+    # heads unpacked from a split [B, F, heads * d_attn] would split the
+    # batched products' batch dim two ways, and their gradients the head
+    # dim where the axis does not divide it (DTensor propagates neither)
+    split = (lambda t: maybe_shard(t, P("data", None, None))) \
+        if mesh_axis_size("model") else (lambda t: t)
     for lp in params["attn"]:
         b, f, _ = h.shape
-        q = (h @ lp["wq"]).reshape(b, f, cfg.n_heads, cfg.d_attn)
-        k = (h @ lp["wk"]).reshape(b, f, cfg.n_heads, cfg.d_attn)
-        v = (h @ lp["wv"]).reshape(b, f, cfg.n_heads, cfg.d_attn)
+        h = split(h)
+        q = split(h @ lp["wq"]).reshape(b, f, cfg.n_heads, cfg.d_attn)
+        k = split(h @ lp["wk"]).reshape(b, f, cfg.n_heads, cfg.d_attn)
+        v = split(h @ lp["wv"]).reshape(b, f, cfg.n_heads, cfg.d_attn)
         scores = torch.einsum("bfnd,bgnd->bnfg", q, k) * cfg.d_attn ** -0.5
         probs = torch.softmax(scores.float(), -1).to(h.dtype)
-        o = torch.einsum("bnfg,bgnd->bfnd", probs, v).reshape(b, f, -1)
+        o = split(torch.einsum("bnfg,bgnd->bfnd", probs, v).reshape(
+            b, f, -1))
         h = torch.relu(o + h @ lp["wres"])
+    h = maybe_shard(h, P("data", None, None))
     out = h.reshape(ids.shape[0], -1) @ params["w_out"]
     return (out[:, 0] + params["bias"]).float()
 
@@ -249,8 +277,8 @@ def _gru_scan(x: torch.Tensor, p: dict, g: int,
     """GRU (att=None) or AUGRU (att [B, S] scales the update gate), a
     Python loop over time.  x: [B, S, D] -> hidden states [B, S, G]."""
     if att is None:
-        att = torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
-    h = torch.zeros((x.shape[0], g), dtype=x.dtype, device=x.device)
+        att = x.new_ones(x.shape[:2])
+    h = x.new_zeros((x.shape[0], g))
     ys = []
     for t in range(x.shape[1]):
         gx = x[:, t] @ p["wx"] + p["b"]
@@ -343,7 +371,8 @@ def bert4rec_encode(params: dict, seq: torch.Tensor,
     Bidirectional attention (cloze objective): the per-position hidden is
     the LSS query against the item-catalogue WOL."""
     mask = seq >= 0
-    x = params["items"][seq.clamp(min=0).long()] + params["pos"][None]
+    x = embedding_lookup(params["items"], seq.clamp(min=0)) \
+        + params["pos"][None]
     x = torch.where(mask[..., None], x, 0).to(cfg.dtype)
     nh, d = cfg.n_heads, cfg.embed_dim
     hd = d // nh

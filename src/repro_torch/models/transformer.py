@@ -7,7 +7,9 @@ arctic-480b: a dense residual MLP in parallel with 128 experts top-2,
 Parameters are a plain dict of tensors with the JAX package's names and
 layout: ``embed``, ``final_norm``, ``lm_head`` (untied only) and
 ``layers``, whose leaves are stacked ``[n_layers, ...]``.  The layers run
-as a Python loop where JAX scans.
+as a Python loop where JAX scans; with ``remat`` (the default, as in
+JAX) a training forward keeps only each layer's input and runs the layer
+again in the backward pass (``torch.utils.checkpoint``).
 
 Entry points:
   * ``lm_loss(params, batch, cfg)``     — training loss (blockwise attn);
@@ -39,10 +41,14 @@ for decode only), and every model rank attends over all heads.
 Attention itself runs on each rank's local heads and rows
 (:func:`_attention`): its masks and chunk loop are plain tensors.  The
 lookup, the gold logit and the log-sum-exp never gather the table or
-the logits (:mod:`repro_torch.utils.sharding`).  The MoE leaves carry
-the JAX package's specs (experts over ``model``, ``moe_fsdp`` d_ff over
-``data``), but the MoE layer itself runs on one device: the zoo on a
-mesh is later work (ROADMAP Queue 1).
+the logits (:mod:`repro_torch.utils.sharding`).  The MoE layer runs on
+the mesh too (experts over ``model``, ``moe_fsdp`` d_ff over ``data``;
+:mod:`repro_torch.models.moe`).  A decode step over a ``DTensor`` cache
+(``cache_specs``: the sequence split over ``model``, or over both axes
+at a batch below 16) takes q, k and v whole over the cache's sequence
+axes, writes the new position on the rank that holds it, and attends
+over each rank's own positions: the max and the sum of the softmax and
+the output are reduced over those axes (three all-reduces a layer).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -57,7 +64,7 @@ from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 from repro_torch.utils.sharding import (P, contiguous_stride, embedding,
                                         is_dtensor, logsumexp, maybe_shard,
                                         mesh_axis_size, replicate,
-                                        vocab_iota)
+                                        shard_range, vocab_iota)
 
 __all__ = ["TransformerConfig", "init_params", "param_specs", "cache_specs",
            "forward", "logits_head", "gold_logit", "lm_loss", "KVCache",
@@ -303,7 +310,12 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
     q = L.rotate(q, *rope)
     k = L.rotate(k, *rope)
 
-    if mode == "decode":
+    if mode == "decode" and is_dtensor(cache[0]):
+        out = _decode_attention_sharded(q, k, v, cache[0], cache[1], kv_len)
+        out = _rows_projection(out.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                               lp["wo"])
+        return x + out, cache
+    elif mode == "decode":
         pos = torch.as_tensor(kv_len, device=x.device) - 1   # write slot
         k_cache = _write_cache(cache[0], k, pos)
         v_cache = _write_cache(cache[1], v, pos)
@@ -313,6 +325,11 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
         out = _attention(q, k, v, cfg)
         new_cache = (k, v) if mode == "prefill" else None
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    if tp and (cfg.n_heads % tp or cfg.n_kv_heads % tp):
+        # whole over model, its gradient too: the projection's gradient,
+        # split over model by wo's rows, would otherwise reach the head
+        # unpacking split where no head boundary falls
+        out = maybe_shard(out, P("data", None, None))
     # heads split over model: each rank's share of the projection is a
     # partial sum, reduced by one all-reduce
     out = maybe_shard(torch.einsum("bsn,nd->bsd", out, lp["wo"]),
@@ -320,16 +337,94 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
     return x + out, new_cache
 
 
+def _decode_attention_sharded(q, k, v, k_cache, v_cache, kv_len):
+    """One decode step over a ``DTensor`` cache ``[B, S, KV, H]`` whose
+    sequence is split over some mesh dims: q, k, v ([B, 1, ., H]) laid
+    out as the cache's batch, the step's k and v written by the rank
+    holding position ``kv_len - 1``, then a softmax over the split
+    positions (its max, its sum and the output each all-reduced over the
+    sequence's mesh dims).  Returns q's layout, the output whole over the
+    sequence dims."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, cp = k_cache.device_mesh, tuple(k_cache.placements)
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in cp)
+    q, k, v = (t.redistribute(mesh, rows) if tuple(t.placements) != rows
+               else t for t in (q, k, v))
+    seq_dims = [i for i, p in enumerate(cp) if p.is_shard(1)]
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    lo, hi = shard_range(k_cache.shape[1], mesh, cp, 1)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    b, _, n, h = ql.shape
+    kv_len = torch.as_tensor(kv_len, device=kc.device)
+    pos = (kv_len - 1).expand(b) if kv_len.dim() == 0 else kv_len - 1
+    mine = (pos >= lo) & (pos < hi)
+    at = torch.where(mine, pos - lo, hi - lo)          # past the end: none
+    _write_cache(kc, kl, at)
+    _write_cache(vc, vl, at)
+
+    def reduce(t, op):
+        for i in seq_dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op,
+                                                     mesh.get_group(i)))
+        return t
+
+    kv = kc.shape[2]
+    r = n // kv
+    spos = lo + torch.arange(hi - lo, device=kc.device)
+    valid = spos[None, :] < kv_len.reshape(-1, 1)             # [B or 1, S]
+    qg = (ql.float() * h ** -0.5).reshape(b, 1, kv, r, h)
+    logits = torch.einsum("bqgrh,bkgh->bgrqk", qg, kc.float())
+    logits = torch.where(valid[:, None, None, None, :], logits, L.NEG_INF)
+    m = reduce(logits.amax(-1, keepdim=True), "max")
+    p = torch.exp(logits - m)
+    denom = reduce(p.sum(-1, keepdim=True), "sum")
+    out = reduce(torch.einsum("bgrqk,bkgh->bqgrh", p, vc.float()), "sum")
+    out = (out / denom.permute(0, 3, 1, 2, 4)).reshape(b, 1, n, h)
+    return DTensor.from_local(out.to(ql.dtype), mesh, rows, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
+def _rows_projection(out, wo):
+    """``out @ wo`` for a sharded decode step: ``out`` [B, 1, n*h] whole
+    over ``model``, ``wo`` [n*h, d] split by rows over it.  Each rank
+    multiplies its rows' slice of ``out`` by its rows of ``wo`` and the
+    partial sums are reduced over ``model`` (one all-reduce), the result
+    laid out as ``out``'s batch."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh, wp = wo.device_mesh, tuple(wo.placements)
+    lo, hi = shard_range(wo.shape[0], mesh, wp, 0)
+    y = out.to_local()[..., lo:hi] @ wo.to_local()
+    pl = [Partial() if w.is_shard(0) else o
+          for w, o in zip(wp, out.placements)]
+    shape = tuple(out.shape[:-1]) + (wo.shape[1],)
+    y = DTensor.from_local(y, mesh, pl, run_check=False, shape=shape,
+                           stride=contiguous_stride(shape))
+    batch = any(p.is_shard(0) for p in out.placements)
+    return maybe_shard(y, P("data" if batch else None, None, None))
+
+
+def _rows_spec(x) -> P:
+    """``[B, ...]`` activations split over ``data`` by rows where the
+    data axis divides B (a decode step of one row is whole)."""
+    dp = mesh_axis_size("data")
+    return P("data" if dp and x.shape[0] % dp == 0 else None,
+             *([None] * (x.dim() - 1)))
+
+
 def _ffn_block(x, lp, cfg: TransformerConfig):
     """The dense SwiGLU, the MoE, or both in parallel, plus the shared
     expert with its sigmoid gate -> (x + out, the MoE's aux loss; None
     for a dense layer)."""
     b, s, d = x.shape
-    h = L.rms_norm(x, lp["ln2"])
+    rows = _rows_spec(x)
+    h = maybe_shard(L.rms_norm(x, lp["ln2"]), rows)
     dense = None
     if cfg.moe_style in ("none", "parallel"):
         dense = maybe_shard(L.swiglu(h, lp["w_gate"], lp["w_up"],
-                                     lp["w_down"]), P("data", None, None))
+                                     lp["w_down"]), rows)
     if cfg.moe_style == "none":
         return x + dense, None
     moe_out, aux = moe_ffn(h.reshape(b * s, d), lp["moe"], cfg.moe_cfg)
@@ -339,7 +434,8 @@ def _ffn_block(x, lp, cfg: TransformerConfig):
     if cfg.shared_expert_ff:
         gate = torch.sigmoid(torch.einsum("bsd,dz->bsz", h,
                                           lp["sh_gate_w"]).float())
-        sh = L.swiglu(h, lp["sh_gate"], lp["sh_up"], lp["sh_down"])
+        sh = maybe_shard(L.swiglu(h, lp["sh_gate"], lp["sh_up"],
+                                  lp["sh_down"]), rows)
         out = out + sh * gate.to(sh.dtype)
     return x + out, aux
 
@@ -366,9 +462,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         positions, cfg.head_dim, cfg.rope_base))
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=_local(x).device)
+    # a training step keeps each layer's input only and runs the layer
+    # again in the backward pass (JAX's jax.checkpoint of a layer)
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, cache, aux_i = _layer(x, _layer_params(params, i), cfg, rope,
-                                 mode)
+        lp = _layer_params(params, i)
+        if remat:
+            x, cache, aux_i = torch.utils.checkpoint.checkpoint(
+                _layer, x, lp, cfg, rope, mode, use_reentrant=False)
+        else:
+            x, cache, aux_i = _layer(x, lp, cfg, rope, mode)
         if aux_i is not None:
             aux = aux + aux_i
         if mode == "prefill":
@@ -432,7 +535,7 @@ def lm_loss(params: dict, batch: dict, cfg: TransformerConfig
 class KVCache(NamedTuple):
     k: torch.Tensor    # [n_layers, B, S_max, KV, H]
     v: torch.Tensor
-    length: int        # valid prefix length
+    length: int | torch.Tensor   # valid prefix length (an int or int [])
 
 
 def cache_specs(cfg: TransformerConfig, batch: int) -> KVCache:
@@ -480,6 +583,13 @@ def _decode_layers(params: dict, token: torch.Tensor,
     nothing drops."""
     x = embedding(params["embed"], token[:, None]).to(cfg.dtype)  # [B, 1, D]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
+    k0 = layer_cache(0)[0]
+    if is_dtensor(x) and is_dtensor(k0):
+        # the batch laid out as the cache's (over data, or whole)
+        x = maybe_shard(x, P("data" if any(p.is_shard(0) for p in
+                                          k0.placements) else None,
+                             None, None))
+        rope = tuple(_replicated_like(t, x) for t in rope)
     for i in range(cfg.n_layers):
         x, (k_i, v_i), _ = _layer(x, _layer_params(params, i), cfg, rope,
                                   "decode", layer_cache(i), kv_len)
@@ -499,8 +609,11 @@ def decode_step(params: dict, token: torch.Tensor, cache: KVCache,
     """
     b = token.shape[0]
     kv_len = cache.length + 1
-    positions = torch.full((b, 1), cache.length, dtype=torch.long,
-                           device=token.device)
+    if isinstance(cache.length, torch.Tensor):
+        positions = cache.length.long().reshape(1, 1).expand(b, 1)
+    else:
+        positions = torch.full((b, 1), cache.length, dtype=torch.long,
+                               device=_local(token).device)
     hidden = _decode_layers(params, token, lambda i: (cache.k[i], cache.v[i]),
                             positions, kv_len, cfg)
     return hidden, KVCache(cache.k, cache.v, kv_len)

@@ -64,9 +64,15 @@ _GLOBAL: MetricsRegistry | None = None
 
 def registry() -> MetricsRegistry:
     """The process-global registry (scope ``None``) for metrics not
-    owned by any one component (KV-pool events, audit gauges)."""
+    owned by any one component (KV-pool events, audit gauges).  A flip
+    of :func:`set_enabled` replaces it at the next call; the superseded
+    one is retired from the exposition (a component built before the
+    flip may still hold it), so the exporters list one ``scope=None``
+    registry, the current one."""
     global _GLOBAL
     if _GLOBAL is None or _GLOBAL.enabled != _ENABLED:
+        if _GLOBAL is not None:
+            _GLOBAL.retire()
         _GLOBAL = MetricsRegistry(None, enabled=_ENABLED)
     return _GLOBAL
 

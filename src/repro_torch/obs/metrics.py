@@ -291,6 +291,12 @@ class MetricsRegistry:
             with _REG_LOCK:
                 _REGISTRIES.add(self)
 
+    def retire(self) -> None:
+        """Leave the exposition: the exporters no longer list this
+        registry; its metrics still count for whoever holds it."""
+        with _REG_LOCK:
+            _REGISTRIES.discard(self)
+
     # ----------------------------------------------------- get-or-create --
     def _get(self, name: str, factory: Callable, cls: type):
         if not self.enabled:

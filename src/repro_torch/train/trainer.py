@@ -33,9 +33,10 @@ from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm)
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.utils.sharding import (NamedSharding, P, is_dtensor,
-                                        replicate, specs_to_shardings,
-                                        to_local, use_mesh)
+from repro_torch.utils.sharding import (NamedSharding, P, full_tensor,
+                                        is_dtensor, replicate,
+                                        specs_to_shardings, to_local,
+                                        use_mesh)
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["TrainConfig", "TrainState", "value_and_grad", "make_train_step",
@@ -62,9 +63,12 @@ class TrainState(NamedTuple):
 
 def _laid_out_as(g, p):
     """A gradient laid out as its parameter: a partial sum over the ranks
-    that split the batch is all-reduced here."""
+    that split the batch is all-reduced here (a plain parameter, a 0-d
+    one every rank holds, gets its gradient whole)."""
     if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
         return g.redistribute(p.device_mesh, p.placements)
+    if is_dtensor(g) and not is_dtensor(p):
+        return full_tensor(g)
     return g
 
 

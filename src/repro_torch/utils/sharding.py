@@ -394,6 +394,13 @@ def embedding(table, ids):
     if any(p.is_shard() and not p.is_shard(0) for p in tp):
         raise ValueError(f"embedding: table placements {tp}; only rows may "
                          f"be sharded")
+    if is_dtensor(ids) and any(p.is_shard() and q.is_shard()
+                               for p, q in zip(tp, ids.placements)):
+        # ids split over a mesh dim that splits the rows too: every rank
+        # of that dim needs all of its ids (one all-gather of the ids)
+        ids = ids.redistribute(mesh, tuple(
+            dt.Replicate() if p.is_shard() else q
+            for p, q in zip(tp, ids.placements)))
     idp = (tuple(ids.placements) if is_dtensor(ids)
            else (dt.Replicate(),) * mesh.ndim)
     ids_local = to_local(ids).long()

@@ -873,3 +873,66 @@ def test_lss_topk_on_a_shard_trained_on_1x2(cuda, tmp_path):
         assert_topk_ids_equal(got[1], want[1], want[0], 1e-4, rows=rows,
                               what="top_ids")
         assert int(got[1].max()) < (m_local if r == 0 else m - m_local)
+
+
+# ---------------------------------------- the kernels as dispatcher ops --
+
+def _custom_op_cases(cuda):
+    """Each kernel's arguments at a small shape, and its launch function
+    (the ``ctypes`` launch the op's CUDA kernel calls)."""
+    q, theta, tids, wb = _case(cuda, 5, 64, 33, 6, 3, 24, 5000)
+    slabs = wb.reshape(-1, 24, 33)
+    slab_ids = torch.randint(0, slabs.shape[0], (64, 3), device=cuda,
+                             dtype=torch.int32)
+    return {
+        "lss_topk": ((q, theta, tids, wb), {"top_k": 7},
+                     lambda: lss_topk_cuda(q, theta, tids, wb, top_k=7),
+                     lss_topk_cuda),
+        "simhash_codes": ((unit(q), theta, 6, 3), {},
+                          lambda: simhash_codes_cuda(unit(q), theta, 6, 3),
+                          simhash_codes_cuda),
+        "bucket_logits": ((q, slabs, slab_ids), {},
+                          lambda: bucket_logits_cuda(q, slabs, slab_ids),
+                          bucket_logits_cuda),
+    }
+
+
+def _same_bits(a, b):
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                    y.view(torch.int32) if y.dtype == torch.float32 else y)
+        for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", ["lss_topk", "simhash_codes",
+                                  "bucket_logits"])
+def test_custom_op_gives_the_launch_functions_bits(cuda, name):
+    """``torch.ops.repro_torch.<name>`` (the op a dry-run's fake tensors
+    trace; real tensors reach its CUDA kernel when called directly)
+    launches the same kernel once, with the same bits as the wrapper's
+    launch function, eager and replayed from a CUDA graph."""
+    args, kwargs, direct, counter = _custom_op_cases(cuda)[name]
+    op = getattr(torch.ops.repro_torch, name)
+    want = direct()
+    before = counter.launches
+    got = op(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert _same_bits(got, want)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        op(*args, **kwargs)                          # warm-up off-graph
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = counter.launches
+    with torch.cuda.graph(graph):
+        static = op(*args, **kwargs)
+    assert counter.launches == before + 1             # the capture only
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1             # a replay runs no Python
+    assert _same_bits(static, want)

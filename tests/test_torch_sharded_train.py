@@ -139,8 +139,9 @@ def model(name):
     if name == "lstm":
         cfg = lstm.LSTMConfig("tiny", **spec["lstm_cfg"])
         return (lambda p, b: lstm.loss(p, b, cfg)), lstm.param_specs(cfg)
+    # as the train launcher trains it: no rematerialisation
     cfg = reduced_model_cfg("qwen2-0.5b")._replace(
-        n_kv_heads=spec[name]["n_kv_heads"])
+        n_kv_heads=spec[name]["n_kv_heads"], remat=False)
     return (lambda p, b: T.lm_loss(p, b, cfg)), T.param_specs(cfg)
 
 
@@ -357,7 +358,7 @@ def _port_loss(name):
         cfg = lstm.LSTMConfig("tiny", **LSTM_CFG)
         return lambda p, b: lstm.loss(p, b, cfg)
     cfg = reduced_model_cfg("qwen2-0.5b")._replace(
-        n_kv_heads=CASES[name]["n_kv_heads"])
+        n_kv_heads=CASES[name]["n_kv_heads"], remat=False)
     return lambda p, b: T.lm_loss(p, b, cfg)
 
 

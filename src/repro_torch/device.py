@@ -4,13 +4,15 @@ Also :class:`HostOutput`, which brings tensors to the host without a
 device-wide wait: ``non_blocking`` copies into pinned host buffers and a
 ``torch.cuda.Event`` after them, which ``wait`` synchronises on — so a
 thread waiting for one result does not also wait for the work queued
-after it.
+after it.  Its two halves are ``obs`` spans: ``output.copy`` (``pinned``:
+the host buffers it pinned) and ``output.wait``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["resolve_device", "HostOutput"]
@@ -42,16 +44,21 @@ class HostOutput:
 
     def __init__(self, out):
         self._event = None
-        if tree_leaves(out)[0].device.type == "cuda":
-            out = tree_map(lambda t: torch.empty(
-                t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                    t, non_blocking=True), out)
-            self._event = torch.cuda.Event()
-            self._event.record()
+        with obs.span("output.copy") as s:
+            leaves = tree_leaves(out)
+            on_card = leaves[0].device.type == "cuda"
+            if on_card:
+                out = tree_map(lambda t: torch.empty(
+                    t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                        t, non_blocking=True), out)
+                self._event = torch.cuda.Event()
+                self._event.record()
+            s.set(pinned=len(leaves) if on_card else 0)
         self._out = out
 
     def wait(self):
         """The tensors as numpy arrays, once this copy has landed."""
-        if self._event is not None:
-            self._event.synchronize()
-        return tree_map(lambda t: t.numpy(), self._out)
+        with obs.span("output.wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            return tree_map(lambda t: t.numpy(), self._out)

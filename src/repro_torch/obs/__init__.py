@@ -6,7 +6,9 @@ One spine for the serving stack's telemetry:
   * :mod:`~repro_torch.obs.metrics` — typed counters/gauges/bounded
     histograms in per-component registries, merged by the exporters;
   * :mod:`~repro_torch.obs.tracing` — spans through the serving seams
-    with a bounded ring and chrome://tracing export, and the deep hook
+    (nested ``with obs.span(...)`` blocks on one thread, each also a
+    profiler range while ``torch.profiler`` records) with a bounded ring
+    and chrome://tracing export, and the deep hook
     :func:`maybe_profile` (a ``torch.profiler`` trace of a block);
   * :mod:`~repro_torch.obs.export` — Prometheus text / JSON snapshot
     over a stdlib ``http.server`` endpoint;
@@ -15,9 +17,10 @@ One spine for the serving stack's telemetry:
 
 The whole subsystem sits behind one switch: ``REPRO_OBS=0`` (or
 :func:`set_enabled`) makes registries hand out shared no-op metrics and
-:func:`start_span` return the shared no-op span — the "compiled-out"
-baseline the overhead bench measures against.  Components read the
-switch at construction, so toggle *before* building an engine/runtime.
+:func:`start_span` and :func:`span` return the shared no-op span — the
+"compiled-out" baseline the overhead bench measures against.  Components
+read the switch at construction, so toggle *before* building an
+engine/runtime.
 """
 
 from __future__ import annotations
@@ -29,14 +32,15 @@ from repro_torch.obs.metrics import (DEFAULT_RESERVOIR, Counter, Gauge,
                                      all_registries)
 from repro_torch.obs.tracing import (SPAN_STATUSES, TRACE_CAP_ENV, Span,
                                      assert_quiescent, event, maybe_profile,
-                                     open_spans, reset_tracer, start_span,
-                                     status_from_exc, trace_export)
+                                     open_spans, reset_tracer, span,
+                                     start_span, status_from_exc,
+                                     trace_export)
 
 __all__ = [
     "enabled", "set_enabled", "registry", "reset",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "all_registries",
     "DEFAULT_RESERVOIR",
-    "Span", "SPAN_STATUSES", "start_span", "event", "trace_export",
+    "Span", "SPAN_STATUSES", "start_span", "span", "event", "trace_export",
     "assert_quiescent", "open_spans", "reset_tracer", "status_from_exc",
     "maybe_profile", "TRACE_CAP_ENV", "OBS_ENV", "AUDIT_RATE_ENV",
     "audit_rate_from_env",

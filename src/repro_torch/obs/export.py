@@ -10,7 +10,9 @@ the endpoint is ``http.server``, so the serving launcher can expose
                         merged (each registry's ``scope`` becomes a
                         label, so two engines never collide);
   * ``/metrics.json``   the same data as a JSON snapshot;
-  * ``/trace``          the chrome://tracing export of the span ring.
+  * ``/trace``          the chrome://tracing export of the span ring, on
+                        ``torch.profiler``'s clock (it overlays a
+                        ``maybe_profile`` trace).
 
 Histograms render the standard triplet — ``_bucket{le=...}`` cumulative
 counts, ``_sum``, ``_count`` — plus ``_p50/_p95/_p99`` convenience
@@ -153,7 +155,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send(json.dumps(json_snapshot()).encode(),
                            "application/json")
             elif path == "/trace":
-                self._send(json.dumps(trace_export()).encode(),
+                self._send(json.dumps(trace_export(
+                    clock="profiler")).encode(),
                            "application/json")
             else:
                 self._send(b"not found: try /metrics, /metrics.json, "

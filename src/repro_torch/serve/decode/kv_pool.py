@@ -257,7 +257,6 @@ class KVCachePool:
                 del self._cache[key]
                 del self._lru[key]
                 self._unref(pid)
-                obs.event("evict", pid=pid)
                 return
         # every cached page is also live in a session: nothing to evict
 
@@ -441,7 +440,6 @@ class KVCachePool:
             self._unref(src)                  # session holds the copy,
             row[n_full] = new_page            # not the cached original
             self._lru.move_to_end(rem_key)
-            obs.event("cow", slot=slot, src=int(src), dst=int(new_page))
         elif n_need > n_full:                 # page-aligned prompt: the
             row[n_full] = new_page            # write page starts empty
         self.prefix_hits += len(keys)

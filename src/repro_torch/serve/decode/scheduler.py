@@ -50,6 +50,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import HostOutput
+from repro_torch.obs.tracing import NOOP_SPAN
 from repro_torch.serve.decode.kv_pool import KVCachePool, KVPoolExhaustedError
 from repro_torch.serve.decode.sessions import DecodeSession, TokenStream
 from repro_torch.serve.runtime.future import DeadlineExceededError
@@ -67,6 +68,11 @@ _PREFILL_COMPILES: dict[tuple, int] = {}
 _PREFILL_LOCK = threading.Lock()
 
 _MIN_PREFILL_BUCKET = 8
+
+
+def _no_span(name: str):
+    """An idle tick's spans: the shared no-op."""
+    return NOOP_SPAN
 
 
 def _prefill_bucket(plen: int) -> int:
@@ -269,19 +275,24 @@ class DecodeScheduler:
             # tick() continuously, and idle polls are not work
             busy = (self._inflight is not None or self.pool.n_active > 0
                     or bool(self._pending))
-            span = obs.start_span("tick") if busy else None
-            self._admit()
-            prev, self._inflight = self._inflight, self._dispatch()
-            if prev is not None:
-                self._collect(prev)
-            if self._epoch is not None and self.idle:
-                # generation drained: release the pinned index epoch
-                e, self._epoch = self._epoch, None
-                self.engine.unpin_epoch(e)
-            if span is not None:
-                span.end("ok", dispatched=self._inflight is not None,
-                         collected=prev is not None,
-                         active=self.pool.n_active)
+            span = obs.span if busy else _no_span
+            with span("tick") as tick_span:
+                with span("tick.admit"):
+                    self._admit()
+                with span("tick.dispatch"):
+                    inflight = self._dispatch()
+                prev, self._inflight = self._inflight, inflight
+                if prev is not None:
+                    with span("tick.collect"):
+                        self._collect(prev)
+                if self._epoch is not None and self.idle:
+                    # generation drained: release the pinned index epoch
+                    e, self._epoch = self._epoch, None
+                    self.engine.unpin_epoch(e)
+                tick_span.set(dispatched=self._inflight is not None,
+                              collected=prev is not None,
+                              active=self.pool.n_active,
+                              slots=self.max_streams)
             return prev is not None or self._inflight is not None \
                 or not self.idle
 
@@ -322,26 +333,26 @@ class DecodeScheduler:
                     f"for a slot"))
                 self._done(sess, "shed_deadline")
                 continue
+            sess.stream.admitted()
             if self._epoch is None and self.head != "full":
                 # first admit of a generation pins the serving epoch;
                 # later joins inherit it
                 self._epoch = self.engine.pin_epoch()
             slot = self.pool.alloc()
-            pspan = obs.start_span("prefill", sid=sess.sid, slot=slot,
-                                   plen=int(sess.prompt.shape[0]))
             try:
-                tok0 = self._prefill(slot, sess.prompt)
+                with obs.span("prefill", sid=sess.sid, slot=slot,
+                              plen=int(sess.prompt.shape[0])):
+                    tok0 = self._prefill(slot, sess.prompt)
             except KVPoolExhaustedError as exc:
                 # the join could not get pages (it unwound cleanly):
                 # shed this one session, keep admitting/ticking the rest
-                pspan.end_from_exc(exc)
+                # (the prefill span ended shed_kv_oom)
                 obs.event("shed_kv_oom", sid=sess.sid, at="join")
                 self.pool.free(slot)
                 sess.finished = True
                 sess.stream.fail(exc)
                 self._done(sess, "shed_kv_oom")
                 continue
-            pspan.end("ok")
             if sess.stream.span is not None:
                 sess.stream.span.event("join", slot=slot)
             self.tok[slot] = tok0         # on the stream, after the replay
@@ -381,19 +392,23 @@ class DecodeScheduler:
             return memo[1]
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :plen] = prompt_np
-        with torch.no_grad():
+        with obs.span("prefill.forward"), torch.no_grad():
             hidden, cache = _prefill(
                 self.params, torch.from_numpy(padded).to(self.engine.device),
                 self.cfg, bucket)
-        k_new, v_new = cache.k, cache.v
-        if bucket > self.max_len:                 # pool never reads past
-            k_new = k_new[:, :, :self.max_len]    # its own width
-            v_new = v_new[:, :, :self.max_len]
-        self.pool.join(slot, k_new, v_new, plen, prompt=prompt_np,
-                       bucket=bucket)
-        ho = self.engine.rank(hidden[:, plen - 1].float(), head=self.head,
-                              record=False, epoch=self._epoch)
-        tok0 = max(int(ho.ids[0, 0]), 0)
+        with obs.span("prefill.join"):
+            k_new, v_new = cache.k, cache.v
+            if bucket > self.max_len:             # pool never reads past
+                k_new = k_new[:, :, :self.max_len]    # its own width
+                v_new = v_new[:, :, :self.max_len]
+            self.pool.join(slot, k_new, v_new, plen, prompt=prompt_np,
+                           bucket=bucket)
+        # waits for the forward and the join on the card too
+        with obs.span("prefill.head"):
+            ho = self.engine.rank(hidden[:, plen - 1].float(),
+                                  head=self.head, record=False,
+                                  epoch=self._epoch)
+            tok0 = max(int(ho.ids[0, 0]), 0)
         self._tok0_cache[key] = (idx, tok0)
         if len(self._tok0_cache) > self._tok0_cache_cap:
             self._tok0_cache.popitem(last=False)

@@ -54,6 +54,10 @@ class TokenStream:
         # here at finish/fail so EVERY terminal path — eos, max_tokens,
         # deadline shed, shed_kv_oom, runtime close — closes it
         self.span = None
+        # the front-end's wait span, from submit until the scheduler
+        # takes the session for a slot (``admitted``) or a shed or
+        # failure path ends the stream (``fail``)
+        self.queue_span = None
         self._tokens: list[int] = []
         self._times: list[float] = []     # perf_counter per appended token
         self._finish_reason: str | None = None
@@ -80,8 +84,13 @@ class TokenStream:
             self._finish_reason = reason
             n = len(self._tokens)
             self._cond.notify_all()
-        if self.span is not None:         # outside _cond: span lock is leaf
+        if self.span is not None:         # outside _cond
             self.span.end("ok", reason=reason, n_tokens=n)
+
+    def admitted(self) -> None:
+        """The scheduler took the session for a slot: its wait ends."""
+        if self.queue_span is not None:
+            self.queue_span.end("ok")
 
     def fail(self, exc: BaseException) -> None:
         with self._cond:
@@ -91,6 +100,8 @@ class TokenStream:
             self._finish_reason = "error"
             n = len(self._tokens)
             self._cond.notify_all()
+        if self.queue_span is not None:   # no-op once admitted
+            self.queue_span.end_from_exc(exc)
         if self.span is not None:
             self.span.set(n_tokens=n)
             self.span.end_from_exc(exc)

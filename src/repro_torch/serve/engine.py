@@ -614,27 +614,32 @@ class Engine:
         decode loop calls this with ``record=False`` and with ``epoch``
         set to its pinned index generation, so prefill first tokens stay
         consistent with its fused decode steps across an index swap.
+        The call is an ``obs`` span, ``rank`` (``rows``, and the first
+        chunk's ``bucket``), over its steps' spans.
         """
         kind = head or self.default_head
         n = tree_leaves(x)[0].shape[0]
         t0 = time.perf_counter()
-        outs = []
-        for chunk in self.batcher.plan(n):
-            part = tree_map(
-                lambda leaf: leaf[chunk.start:chunk.start + chunk.size], x)
-            o = self._step(kind, chunk.bucket, epoch)(
-                _pad_to_bucket(part, chunk.bucket))
-            outs.append(tree_map(lambda leaf: leaf[:chunk.size], o))
-        out = outs[0] if len(outs) == 1 else HeadOutput(
-            *(None if any(leaf is None for leaf in ls) else torch.cat(ls)
-              for ls in zip(*outs)))
-        if record:
-            host = HostOutput(out).wait()
-            wall = time.perf_counter() - t0
-            self._record(host, n, wall, [wall] * n, labels)
-            if self.auditor is not None and kind != "full":
-                self.auditor.offer(x, host.ids)
-        return out
+        plan = self.batcher.plan(n)
+        with obs.span("rank", rows=n, bucket=plan[0].bucket if plan else 0):
+            outs = []
+            for chunk in plan:
+                part = tree_map(
+                    lambda leaf: leaf[chunk.start:chunk.start + chunk.size],
+                    x)
+                o = self._step(kind, chunk.bucket, epoch)(
+                    _pad_to_bucket(part, chunk.bucket))
+                outs.append(tree_map(lambda leaf: leaf[:chunk.size], o))
+            out = outs[0] if len(outs) == 1 else HeadOutput(
+                *(None if any(leaf is None for leaf in ls)
+                  else torch.cat(ls) for ls in zip(*outs)))
+            if record:
+                host = HostOutput(out).wait()
+                wall = time.perf_counter() - t0
+                self._record(host, n, wall, [wall] * n, labels)
+                if self.auditor is not None and kind != "full":
+                    self.auditor.offer(x, host.ids)
+            return out
 
     # --------------------------------------------------- request queue --
     def _channel_lock(self):

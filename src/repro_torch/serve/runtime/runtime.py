@@ -440,6 +440,9 @@ class AsyncRuntime:
             "decode_session", sid=session.sid,
             prompt_len=int(session.prompt.shape[0]),
             max_new_tokens=max_new_tokens)
+        # until the scheduler takes it for a slot, before its prefill
+        session.stream.queue_span = obs.start_span(
+            "queue", parent=session.stream.span, sid=session.sid)
         with self._mu:
             self._n_decode_submitted += 1
             if self._t_first is None:
@@ -634,7 +637,7 @@ class AsyncRuntime:
                     # auditor's coin flip samples this chunk
                     aud.offer(lambda ws=works: stack_rows(
                         [w.x for w in ws]), out.ids[:n])
-                span.end("ok", device_s=wall)
+                span.end("ok", wall_s=wall)
                 for i, w in enumerate(works):
                     w.future.set_result(
                         RankResult(w.future.rid, out.logits[i], out.ids[i]))

@@ -19,6 +19,11 @@ they are.  ``inputs`` are the rest: pytrees of numpy arrays or tensors.
   use.  The graph holds the addresses of the ``bound`` tensors, so the
   step keeps them and a call must pass the very same ones.
 
+Each phase of a call is an ``obs`` span: ``step.copy_in`` (its
+``pinned`` attribute counts the host buffers it pinned), ``step.replay``
+and ``step.clone`` on the card, ``step.copy_in`` and ``step.eager`` on the
+CPU.
+
 The score steps bind nothing: their one input is the bucket-shaped
 request batch.  The fused decode step binds ``(params, tok, k, v)`` and
 copies in the host operands (``lengths``, or ``page_table, lengths``).
@@ -70,6 +75,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["Step", "release_graphs"]
@@ -125,17 +131,20 @@ def _to_device(leaf, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(leaf)).to(device)
 
 
-def _copy_in(dst: torch.Tensor, src) -> None:
-    """Copy one input leaf into its static buffer, asynchronously: a host array goes through a pinned buffer (a copy
-    from pageable memory would wait for the stream)."""
+def _copy_in(dst: torch.Tensor, src) -> int:
+    """Copy one input leaf into its static buffer, asynchronously: a host
+    array goes through a pinned buffer (a copy from pageable memory would
+    wait for the stream).  Returns the host buffers it pinned (0 or 1)."""
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"input leaf of shape {tuple(src.shape)} does "
                          f"not fit the step's {tuple(dst.shape)}")
     if not isinstance(src, torch.Tensor):
         src = torch.from_numpy(np.ascontiguousarray(src))
-    if src.device.type == "cpu":
+    pinned = src.device.type == "cpu"
+    if pinned:
         src = src.to(dst.dtype).pin_memory()
     dst.copy_(src, non_blocking=True)
+    return int(pinned)
 
 
 class Step:
@@ -215,15 +224,20 @@ class Step:
                     "a step's CUDA graph is bound to the tensors it "
                     "captured (a decode step's params, tokens and KV); "
                     "pass the same ones")
-            for dst, src in zip(self._in_leaves, leaves):
-                _copy_in(dst, src)
-            self._graph.replay()
-            return tree_map(torch.clone, self._static_out)
+            with obs.span("step.copy_in") as s:
+                s.set(pinned=sum(_copy_in(dst, src) for dst, src
+                                 in zip(self._in_leaves, leaves)))
+            with obs.span("step.replay"):
+                self._graph.replay()
+            with obs.span("step.clone"):
+                return tree_map(torch.clone, self._static_out)
 
     def _eager(self, bound, inputs):
-        with torch.no_grad():
-            return self.fn(*bound, *tree_map(
-                lambda leaf: _to_device(leaf, self.device), inputs))
+        with obs.span("step.copy_in", pinned=0):
+            inputs = tree_map(lambda leaf: _to_device(leaf, self.device),
+                              inputs)
+        with obs.span("step.eager"), torch.no_grad():
+            return self.fn(*bound, *inputs)
 
     def _capture(self, bound, inputs) -> None:
         t0 = time.perf_counter()

@@ -5,6 +5,10 @@ Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the
 port's paths at Delicious-200K's full width (random weights from a seed):
 
+* ``decode_attention``: the paged decode-attention kernel at the
+  ``qwen2-0.5b-lss-reason`` cell's step (64 rows, 14 / 2 heads, head_dim
+  64, pages of 128, max_len 5,632, one layer's arenas) against its plain
+  version, timed cold beside its byte bound at the rows' lengths;
 * ``main_path``: serves requests through the XC model's query embedding,
   ``lss_predict`` (the fused ``lss_topk`` kernel), ``retrieve`` (the
   ``simhash_codes`` kernel) for label recall, and the exact full head;
@@ -198,6 +202,10 @@ try:
     from repro_torch.kernels.bucket_logits.ops import (bucket_logits_cuda,
                                                        bucket_logits_plan)
     from repro_torch.kernels.bucket_logits.ref import bucket_logits_ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.lss_topk import lss_topk
     from repro_torch.kernels.lss_topk import ops as lss_topk_ops
     from repro_torch.kernels.lss_topk.ref import lss_topk_ref
@@ -669,6 +677,106 @@ def phase_bucket_logits(dev, gen, w_aug, setting):
               "launches": bucket_logits_cuda.launches - launches,
               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
               "flops": flops})
+
+
+ATTN_SHAPE = dict(b=64, n=14, kv=2, h=64, page=128, max_len=5632)
+
+
+def attention_inputs(dev, lengths, b, n, kv, h, page, max_len, seed=0):
+    """One layer of a paged pool in bf16: each row's pages shuffled
+    through the arena up to its write page (a parked row, length 0, maps
+    only scratch page 0), the step's q and new rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    n_pp = -(-max_len // page)
+    table = 1 + rng.permutation(b * n_pp).reshape(b, n_pp)
+    for i, m in enumerate(lengths):
+        table[i, min(int(m), max_len - 1) // page + 1:] = 0
+    table[np.asarray(lengths) == 0] = 0
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    return dict(q=rand(b, n, h), k_arena=rand(1 + b * n_pp, page, kv, h),
+                v_arena=rand(1 + b * n_pp, page, kv, h),
+                page_table=torch.from_numpy(table.astype(np.int32)).to(dev),
+                lengths=torch.tensor(np.asarray(lengths, np.int32),
+                                     device=dev),
+                k_new=rand(b, kv, h), v_new=rand(b, kv, h), max_len=max_len)
+
+
+def attention_bound_ms(lengths, n, kv, h, max_len, isz=2):
+    """K and V of each row's context read once (its new row, read from
+    the step's k, v and written to its page, counts as the read); q.k and
+    p.v, 4 * N * H fp32 operations a position."""
+    positions = int(np.minimum(np.asarray(lengths) + 1, max_len).sum())
+    return bound(2 * positions * kv * h * isz, 4 * positions * n * h)
+
+
+def attention_error(got, want):
+    """The largest error of an output against the plain version's, as a
+    share of 2^-7 (an ulp of bf16) times that element's magnitude plus
+    its own (row, head)'s largest output: at most 1 where every row is
+    within its own scale."""
+    g, w = got.float(), want.float()
+    limit = 2 ** -7 * (w.abs() + w.abs().amax(-1, keepdim=True))
+    return float(((g - w).abs() / limit).max())
+
+
+def phase_decode_attention(dev):
+    """The kernel against its plain version at the reason cell's step,
+    for lengths drawn from 1..max_len with two full and two parked rows,
+    with every row long and ending inside a split, and with every row
+    full; each output within an ulp of bf16 of its own (row, head)'s
+    scale.  Device ms (cold L2) beside the byte bound at those lengths
+    and the plain version's ms."""
+    sh = ATTN_SHAPE
+    rng = np.random.default_rng(SEED)
+    drawn = rng.integers(1, sh["max_len"], sh["b"])
+    drawn[:2], drawn[2:4] = sh["max_len"], 0
+    # every row long; none of their last splits (256 positions) full
+    long = rng.integers(sh["max_len"] - 1000, sh["max_len"] - 1, sh["b"])
+    long[(long + 1) % 256 == 0] -= 1
+    entry = None
+    for case, lengths in (("drawn", drawn), ("long", long),
+                          ("full", np.full(sh["b"], sh["max_len"]))):
+        args = attention_inputs(dev, lengths, **sh)
+        plain_args = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                      for k, v in args.items()}
+        launches = decode_attention_cuda.launches
+        got = decode_attention(**args)
+        want = decode_attention_ref(**plain_args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        rel = attention_error(got, want)
+        arenas_equal = all(torch.equal(args[s][1:], plain_args[s][1:])
+                           for s in ("k_arena", "v_arena"))
+        require(rel <= 1.0, f"decode_attention ({case}): an output is off "
+                f"by {rel} of its limit against the plain version")
+        require(arenas_equal, f"decode_attention ({case}): the arenas "
+                f"differ from the plain version's")
+        require(decode_attention_cuda.launches == launches + 1,
+                "decode_attention: the wrapper did not launch once")
+        ms = time_ms(lambda: decode_attention(**args))
+        plain = time_ms(lambda: decode_attention_ref(**plain_args), iters=5)
+        b_ms, b_by, nbytes, flops = attention_bound_ms(
+            lengths, sh["n"], sh["kv"], sh["h"], sh["max_len"])
+        emit({"phase": "decode_attention", "case": case, **sh,
+              "positions": int(np.minimum(lengths + 1, sh["max_len"]).sum()),
+              "max_abs_err": err, "out_scale": scale,
+              "err_of_row_limit": rel,
+              "arenas_equal": arenas_equal, "ms": ms, "plain_ms": plain,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+              "flops": flops, "roofline_pct": 100.0 * b_ms / ms})
+        if entry is None:
+            entry = {"name": "decode_attention", "route": "cuda",
+                     "source": "src/repro_torch/csrc/decode_attention.cu",
+                     "replaces": None, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+    return entry
 
 
 def phase_main_path(dev, model, index, data, counters):
@@ -2933,10 +3041,13 @@ def phase_decode(dev, smi, counters):
     AsyncRuntime's decode kind at ``DECODE_QPS`` sessions a second and in
     a burst (LSS), in a burst (full).  Every run gives the blocking
     tokens bit for bit.  That is the counted run (``simhash_codes`` in
-    ``fit_lss``; ``lss_topk`` in each LSS step's warm-up and capture),
-    and the paged LSS run inside it runs under ``torch.profiler``, which
-    must see one ``lss_topk`` kernel for each step replayed, each
-    first-token rank and each warm-up.
+    ``fit_lss``; ``lss_topk`` in each LSS step's warm-up and capture;
+    ``decode_attention`` once a layer in each decode step's warm-up and
+    capture), and the paged LSS run inside it runs under
+    ``torch.profiler``, which must see one ``lss_topk`` kernel for each
+    step replayed, each first-token rank and each warm-up, and the two
+    ``decode_attn`` kernels once a layer for each step replayed and each
+    warm-up.
     Then, outside the counts: a replayed step against the eager step,
     ``lss_forward`` and an fp32 GEMM; ``lss_topk`` at the decode shapes against its plain version; ms a
     step beside the byte bounds."""
@@ -2995,6 +3106,7 @@ def phase_decode(dev, smi, counters):
     paged_stats = {}
     for head in ("full", "lss"):
         sched = paged.scheduler(head=head)
+        attn_builds0 = decode_builds(paged)
         t0 = time.perf_counter()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA])
@@ -3012,6 +3124,7 @@ def phase_decode(dev, smi, counters):
     # first-token rank, and one a warm-up of each LSS step built here
     s = paged_stats["lss"]
     device_launches = device_kernel_count(prof, "lss_topk")
+    attn_kernels = device_kernel_count(prof, "decode_attn")
     window_breakdown(prof, "decode_paged_lss", smi)
     del prof
     ranked = s["n_sessions"] - s["n_prefill_skipped"]
@@ -3021,9 +3134,16 @@ def phase_decode(dev, smi, counters):
             f"decode: the profiler saw {device_launches} lss_topk kernels "
             f"in the paged LSS run for {s['n_steps']} steps, {ranked} "
             f"first-token ranks and {builds} warm-ups")
+    attn_warm_ups = decode_builds(paged) - attn_builds0
+    require(attn_kernels == 2 * cfg.n_layers * (s["n_steps"]
+                                                + attn_warm_ups),
+            f"decode: the profiler saw {attn_kernels} decode_attn kernels "
+            f"in the paged LSS run for {s['n_steps']} steps and "
+            f"{attn_warm_ups} warm-ups of {cfg.n_layers} layers")
     profiled = {"run": "paged_lss", "lss_topk_kernels": device_launches,
+                "decode_attn_kernels": attn_kernels,
                 "steps": s["n_steps"], "first_token_ranks": ranked,
-                "warm_ups": builds}
+                "warm_ups": builds, "decode_step_warm_ups": attn_warm_ups}
 
     # the runtime's decode kind, interleaved
     runs = {"lss_open_loop": ("lss", DECODE_QPS), "lss_burst": ("lss", 0.0),
@@ -3064,6 +3184,12 @@ def phase_decode(dev, smi, counters):
             f"decode step and the first-token step of each layout)")
     require(launches["bucket_logits_cuda"] == 0,
             "decode: bucket_logits was launched")
+    attn_builds = decode_builds(dense) + decode_builds(paged)
+    require(launches["decode_attention_cuda"]
+            == 2 * cfg.n_layers * attn_builds,
+            f"decode: decode_attention wrapper launches "
+            f"{launches['decode_attention_cuda']}, not one a layer in the "
+            f"warm-up and the capture of each of {attn_builds} decode steps")
     torch.cuda.synchronize()
     mem = {"allocated_mb": torch.cuda.memory_allocated() / 2 ** 20,
            "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20,
@@ -3086,7 +3212,8 @@ def phase_decode(dev, smi, counters):
                   "beside the byte bounds at 3.35 TB/s",
           "steps": checks, "bounds": bounds, **kernels, "memory": mem, "seconds": time.perf_counter() - t_phase,
           "device": smi})
-    return launches, device_launches, {
+    return launches, {"lss_topk": device_launches,
+                      "decode_attn": attn_kernels}, {
         "dense": dense, "params": params, "prompts": prompts,
         "blocking": blocking, "hidden": hidden[0]}
 
@@ -3097,6 +3224,14 @@ def lss_builds(dec):
     """LSS steps the decoder's engine has built (warm-up + capture each)."""
     return sum(n for (kind, _), n in dec.engine.compile_counts.items()
                if kind == "lss")
+
+
+def decode_builds(dec):
+    """Fused decode steps the decoder's engine has built, of either head
+    (warm-up + capture each; each runs ``decode_attention`` once a
+    layer)."""
+    return sum(n for (_, tag), n in dec.engine.compile_counts.items()
+               if isinstance(tag, str) and tag.startswith("decode["))
 
 
 def param_bytes(params):
@@ -3112,8 +3247,11 @@ def zoo_lm_decode(dev, smi, counters, spec, cfg, prompts, new_tokens,
     sessions interleaved on the same pool, whose tokens must equal the
     blocking ones bit for bit; the interleaved LSS run under
     ``torch.profiler``, which must see one ``lss_topk`` kernel a replayed
-    step and a first-token rank.  That is the counted run.  Returns the
-    decoder, its blocking tokens and what it measured."""
+    step and a first-token rank, and the two ``decode_attn`` kernels once
+    a layer a replayed step and a warm-up.  That is the counted run, in
+    which ``decode_attention`` runs once a layer in each decode step's
+    warm-up and capture.  Returns the decoder, its blocking tokens, the
+    wrappers' launches and the profiler's kernel counts."""
     lss_cfg = spec.lss._replace(iul_epochs=DECODE_IUL_EPOCHS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3158,7 +3296,7 @@ def zoo_lm_decode(dev, smi, counters, spec, cfg, prompts, new_tokens,
     for head in ("full", "lss"):
         sched = dense.scheduler(head=head)
         sched.reset_stats()
-        builds0 = lss_builds(dense)
+        builds0, attn_builds0 = lss_builds(dense), decode_builds(dense)
         t0 = time.perf_counter()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA])
@@ -3172,15 +3310,28 @@ def zoo_lm_decode(dev, smi, counters, spec, cfg, prompts, new_tokens,
                 f"{what} {head}: interleaved tokens differ from blocking")
     s = inter["lss"]
     device_launches = device_kernel_count(prof, "lss_topk")
+    attn_kernels = device_kernel_count(prof, "decode_attn")
     window_breakdown(prof, f"{what}_interleaved_lss", smi)
     del prof
     ranked = s["n_sessions"] - s["n_prefill_skipped"]
     builds = lss_builds(dense) - builds0
+    attn_warm_ups = decode_builds(dense) - attn_builds0
     require(device_launches == s["n_steps"] + ranked + builds,
             f"{what}: the profiler saw {device_launches} lss_topk kernels "
             f"in the interleaved LSS run for {s['n_steps']} steps, {ranked} "
             f"first-token ranks and {builds} warm-ups")
+    require(attn_kernels == 2 * cfg.n_layers * (s["n_steps"]
+                                                + attn_warm_ups),
+            f"{what}: the profiler saw {attn_kernels} decode_attn kernels "
+            f"in the interleaved LSS run for {s['n_steps']} steps and "
+            f"{attn_warm_ups} warm-ups of {cfg.n_layers} layers")
     launches = read(counters)
+    attn_builds = decode_builds(dense)
+    require(launches["decode_attention_cuda"]
+            == 2 * cfg.n_layers * attn_builds,
+            f"{what}: decode_attention wrapper launches "
+            f"{launches['decode_attention_cuda']}, not one a layer in the "
+            f"warm-up and the capture of each of {attn_builds} decode steps")
     require(launches["simhash_codes_cuda"] > 0,
             f"{what}: simhash_codes was not launched in fit_lss")
     require(launches["lss_topk_cuda"] > 0,
@@ -3198,13 +3349,16 @@ def zoo_lm_decode(dev, smi, counters, spec, cfg, prompts, new_tokens,
           "new_tokens": new_tokens, "streams": DECODE_STREAMS,
           "seconds": seconds, "launches": launches,
           "profiler": {"lss_topk_kernels": device_launches,
+                       "decode_attn_kernels": attn_kernels,
                        "steps": s["n_steps"], "first_token_ranks": ranked,
-                       "warm_ups": builds},
+                       "warm_ups": builds,
+                       "decode_step_warm_ups": attn_warm_ups},
           "tokens": "interleaved = blocking, bit for bit, both heads",
           "top1_agreement_lss_vs_full": float(np.mean(
               np.stack(blocking["lss"]) == np.stack(blocking["full"]))),
           "interleaved": inter, "device": smi})
-    return dense, blocking, launches, device_launches
+    return dense, blocking, launches, {"lss_topk": device_launches,
+                                       "decode_attn": attn_kernels}
 
 
 def zoo_decode_timing(dense, prompts, blocking, counters, smi, new_tokens,
@@ -3745,7 +3899,8 @@ def zoo_kernel_entries(moe, arctic, bert):
         lt, sc = res["kernels"]["lss_topk"], res["kernels"]["simhash_codes"]
         shape = {"d_aug": lt["d_aug"], "K": lt["K"], "L": lt["L"],
                  "P": lt["P"]}
-        out.append(entry("lss_topk", path, res["device"], lt["B8"],
+        out.append(entry("lss_topk", path, res["device"]["lss_topk"],
+                         lt["B8"],
                          {**shape, "B": DECODE_STREAMS,
                           "layout": lt["layout"]}))
         out.append(entry("simhash_codes", path,
@@ -4466,6 +4621,7 @@ def main() -> int:
     phase_simhash(dev, gen, augment_queries(q_main))
     phase_lss_topk(dev, gen, w_aug, DELICIOUS)
     phase_bucket_logits(dev, gen, w_aug, DELICIOUS)
+    attention = phase_decode_attention(dev)
     launches, q0 = phase_main_path(
         dev, model, index, data,
         (simhash_codes_cuda, lss_topk_ops.lss_topk_cuda))
@@ -4495,8 +4651,10 @@ def main() -> int:
     sharded_train_launches = phase_sharded_train(dev, smi)
     refresh_launches, injected = phase_refresh(dev, smi, res, counters)
     del res
+    # the decode paths also count the decode-attention wrapper's launches
+    decode_counters = counters + (decode_attention_cuda,)
     decode_launches, decode_device, decode_state = phase_decode(
-        dev, smi, counters)
+        dev, smi, decode_counters)
     refresh_decode_launches = phase_refresh_decode(dev, smi, counters,
                                                    decode_state, injected)
     del decode_state
@@ -4515,7 +4673,7 @@ def main() -> int:
         decode_launches["simhash_codes_cuda"]
     line["kernels"][1]["launches_by_path"].update(
         serve_engine=serve_launches, serve_runtime_trace=runtime_launches,
-        decode=decode_device,
+        decode=decode_device["lss_topk"],
         sharded_index={k: n["lss_topk_cuda"]
                        for k, n in sharded_launches.items()},
         sharded_engine=sharded_engine_device,
@@ -4527,8 +4685,8 @@ def main() -> int:
     phase_paper_table2(dev, smi, counters)
     phase_paper_fig2(dev, counters)
     # the rest of the model zoo
-    moe = phase_moe_decode(dev, smi, counters)
-    arctic = phase_arctic_decode(dev, smi, counters)
+    moe = phase_moe_decode(dev, smi, decode_counters)
+    arctic = phase_arctic_decode(dev, smi, decode_counters)
     bert = phase_bert4rec_serve(dev, smi, counters)
     phase_zoo_step(dev, smi)
     cells_launches = phase_cells(dev, smi, counters)
@@ -4539,12 +4697,24 @@ def main() -> int:
             arctic_decode=arctic["launches"][name],
             bert4rec_serve=bert["launches"][name])
     line["kernels"][1]["launches_by_path"].update(
-        moe_decode_profiler=moe["device"],
-        arctic_decode_profiler=arctic["device"])
+        moe_decode_profiler=moe["device"]["lss_topk"],
+        arctic_decode_profiler=arctic["device"]["lss_topk"])
     for entry in line["kernels"]:
         entry.setdefault("launches_by_path", {})["cells"] = \
             cells_launches[entry["name"] + "_cuda"]
     line["kernels"].extend(zoo_kernel_entries(moe, arctic, bert))
+    # the decode step's kernel: the wrapper's launches (a warm-up and a
+    # capture a layer and decode step) and the profiler's decode_attn
+    # kernels (two a layer, a replayed step and a warm-up) on each path
+    attention["launches"] = decode_launches["decode_attention_cuda"]
+    attention["launches_by_path"] = {
+        "decode": decode_launches["decode_attention_cuda"],
+        "decode_profiler": decode_device["decode_attn"],
+        "moe_decode": moe["launches"]["decode_attention_cuda"],
+        "moe_decode_profiler": moe["device"]["decode_attn"],
+        "arctic_decode": arctic["launches"]["decode_attention_cuda"],
+        "arctic_decode_profiler": arctic["device"]["decode_attn"]}
+    line["kernels"].append(attention)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(line)
     print(smi, flush=True)

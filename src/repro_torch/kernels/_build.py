@@ -11,7 +11,9 @@ The file name carries a digest of the flags, the source and the shared
 headers, so an edited source is rebuilt and a stale library is never
 loaded.  Kernels are built only from the sources in this package.
 :func:`build` compiles all stale libraries in parallel (one ``nvcc`` each,
-all started together); :func:`load` builds one if needed and opens it.
+all started together); :func:`load` opens one, and where it is stale first
+builds every stale library that way, so a process's first kernel pays for
+all the builds at once rather than each kernel for its own in turn.
 Nothing here runs at import time.
 """
 
@@ -35,7 +37,8 @@ __all__ = ["CSRC", "BUILD_DIR", "KERNELS", "HEADERS", "NVCC_FLAGS",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/kernels (src/repro_torch/kernels/_build.py -> parents[3])
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("simhash_codes", "lss_topk", "bucket_logits")
+KERNELS = ("simhash_codes", "lss_topk", "bucket_logits",
+           "decode_attention")
 # every header a csrc/*.cu includes: each is part of every library's digest
 HEADERS = ("bulk_copy.cuh", "simhash.cuh", "warp_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -107,10 +110,12 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Open ``name``'s library, building it first if it is stale."""
+    """Open ``name``'s library; where it is stale, build every stale
+    library first (in parallel, :func:`build`)."""
     lib = _libs.get(name)
     if lib is None:
-        build((name,))
+        if not library_path(name).exists():
+            build(tuple(dict.fromkeys((name, *KERNELS))))
         lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 

@@ -11,8 +11,10 @@ Attention has three execution paths, as in the JAX package:
 
 Every path keeps the JAX formulas: fp32 upcast of the operands, a
 ``NEG_INF`` mask, then softmax.  ``scaled_dot_product_attention`` is not
-used: the dense and paged decode steps are bit-identical only because
-both run this same reduction over the same shape.  Functions are pure
+used: on the CPU the dense and paged decode steps are bit-identical
+because both run ``attention_decode`` over the same shape (the
+``decode_attention`` op's plain version; on the card its kernel, whose
+result for a row depends on that row's data alone).  Functions are pure
 on tensors, except that nothing here writes its inputs.
 """
 

@@ -59,6 +59,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 from repro_torch.utils.sharding import (P, contiguous_stride, embedding,
@@ -316,11 +317,11 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
                                lp["wo"])
         return x + out, cache
     elif mode == "decode":
-        pos = torch.as_tensor(kv_len, device=x.device) - 1   # write slot
-        k_cache = _write_cache(cache[0], k, pos)
-        v_cache = _write_cache(cache[1], v, pos)
-        out = L.attention_decode(q, k_cache, v_cache, kv_len)
-        new_cache = (k_cache, v_cache)
+        # writes the step's k, v into the arenas at cache.lengths
+        out = decode_attention(q[:, 0], cache.k, cache.v, cache.table,
+                               cache.lengths, k[:, 0], v[:, 0],
+                               cache.max_len)[:, None]
+        new_cache = (cache.k, cache.v)
     else:
         out = _attention(q, k, v, cfg)
         new_cache = (k, v) if mode == "prefill" else None
@@ -538,6 +539,32 @@ class KVCache(NamedTuple):
     length: int | torch.Tensor   # valid prefix length (an int or int [])
 
 
+class _LayerKV(NamedTuple):
+    """One layer's KV as a decode step reads it (``decode_attention``):
+    arenas ``[n_pages, page_tokens, KV, H]`` where row b's position t lives
+    at page ``table[b, t // page_tokens]``, read up to ``max_len``;
+    ``lengths`` [B] int32, the positions the step writes.  A dense slab
+    ``[B, S, KV, H]`` is an arena of one ``S``-token page a row."""
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor
+    lengths: torch.Tensor
+    max_len: int
+
+
+def _dense_kv(k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+              ) -> Callable:
+    """``layer_cache`` over dense slabs ``[L, B, S, KV, H]``: each row
+    its own page of ``S`` tokens (``DTensor`` slabs: their ``(k, v)``,
+    which the sharded step reads)."""
+    if is_dtensor(k):
+        return lambda i: (k[i], v[i])
+    b, s = k.shape[1:3]
+    table = torch.arange(b, dtype=torch.int32, device=k.device)[:, None]
+    lengths = lengths.to(torch.int32).contiguous()
+    return lambda i: _LayerKV(k[i], v[i], table, lengths, s)
+
+
 def cache_specs(cfg: TransformerConfig, batch: int) -> KVCache:
     """Sharding policy: batch over data when it divides, else the sequence
     axis takes both mesh axes (long-context batch=1 decode)."""
@@ -572,15 +599,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
 
 def _decode_layers(params: dict, token: torch.Tensor,
                    layer_cache: Callable, positions: torch.Tensor, kv_len,
-                   cfg: TransformerConfig,
-                   after: Callable | None = None) -> torch.Tensor:
+                   cfg: TransformerConfig) -> torch.Tensor:
     """Shared one-token layer loop.  token [B]; ``layer_cache(i)`` gives
-    layer i's ``(k, v)`` ``[B, S, KV, H]``, which the layer writes in
-    place; ``after(i, k, v)`` runs once layer i has attended; positions
-    [B, 1], kv_len scalar or [B] -> hidden [B, D].  Every op is
-    row-parallel over B, but for the MoE's capacity: a row's tokens drop
-    only when more than C = max(8, ...) rows pick one expert, so at B <= 8
-    nothing drops."""
+    layer i's KV, which the layer writes in place: a :class:`_LayerKV`
+    (``decode_attention``), or a ``DTensor`` cache's ``(k, v)`` ``[B, S,
+    KV, H]`` with kv_len scalar or [B]; positions [B, 1] -> hidden [B, D].
+    Every op is row-parallel over B, but for the MoE's capacity: a row's
+    tokens drop only when more than C = max(8, ...) rows pick one expert,
+    so at B <= 8 nothing drops."""
     x = embedding(params["embed"], token[:, None]).to(cfg.dtype)  # [B, 1, D]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
     k0 = layer_cache(0)[0]
@@ -591,10 +617,8 @@ def _decode_layers(params: dict, token: torch.Tensor,
                              None, None))
         rope = tuple(_replicated_like(t, x) for t in rope)
     for i in range(cfg.n_layers):
-        x, (k_i, v_i), _ = _layer(x, _layer_params(params, i), cfg, rope,
-                                  "decode", layer_cache(i), kv_len)
-        if after is not None:
-            after(i, k_i, v_i)
+        x, _, _ = _layer(x, _layer_params(params, i), cfg, rope, "decode",
+                         layer_cache(i), kv_len)
     return L.rms_norm(x[:, 0], params["final_norm"])
 
 
@@ -614,7 +638,8 @@ def decode_step(params: dict, token: torch.Tensor, cache: KVCache,
     else:
         positions = torch.full((b, 1), cache.length, dtype=torch.long,
                                device=_local(token).device)
-    hidden = _decode_layers(params, token, lambda i: (cache.k[i], cache.v[i]),
+    hidden = _decode_layers(params, token,
+                            _dense_kv(cache.k, cache.v, positions[:, 0]),
                             positions, kv_len, cfg)
     return hidden, KVCache(cache.k, cache.v, kv_len)
 
@@ -632,7 +657,7 @@ def decode_step_pooled(params: dict, token: torch.Tensor, k: torch.Tensor,
     Row ``i`` computes exactly what :func:`decode_step` computes for a
     batch-1 cache of the same width ``S_max`` — every op is row-parallel.
     """
-    hidden = _decode_layers(params, token, lambda i: (k[i], v[i]),
+    hidden = _decode_layers(params, token, _dense_kv(k, v, lengths),
                             lengths[:, None].long(), lengths + 1, cfg)
     return hidden, k, v
 
@@ -648,43 +673,27 @@ def decode_step_paged(params: dict, token: torch.Tensor,
     page_table [B, pages_per_slot] int (0 = unmapped -> the reserved
     scratch page), lengths [B] int -> (hidden [B, D], k_arena, v_arena).
 
-    Bit-identity with the dense layout is by construction: each layer
-    gathers every row's pages IN ORDER into a contiguous view sliced to
-    exactly ``max_len`` — the shape the dense slab presents — so the
-    layer runs the very same reduction over the very same valid contents
-    (positions >= lengths are masked to exact zeros either way).  Slicing
-    to ``max_len`` (not ``pages_per_slot * page_tokens``) is
-    load-bearing: reductions are not shape-invariant at the ulp level, on
-    the CPU or in cuBLAS.
+    Each layer's attention reads every row's pages through the table,
+    over that row's valid positions only (``decode_attention``), and
+    writes the new KV row into the row's current write page (page
+    ``lengths // page_tokens``, offset ``lengths % page_tokens``).  A row
+    at ``lengths == max_len`` writes nothing; a parked row's table maps
+    only scratch page 0, so its write lands there and a freed slot's
+    in-flight step can never corrupt a recycled page.
 
-    The gather materialises one layer's ``[B, max_len, KV, H]`` view at a
-    time, so the paged layout's savings are in PERSISTENT arena bytes.
-    The new KV row is scattered back into each row's current write page
-    (page ``lengths // p``, offset ``lengths % p``).  Rows that must not
-    write — parked slots and rows at ``lengths == max_len`` — are sent to
-    scratch page 0, so a freed slot's in-flight step can never corrupt a
-    recycled page.
+    Bit-identity with the dense layout holds by construction: a dense
+    slab is the same op over an arena of one ``max_len`` page a row.  On
+    the card the kernel's splits sit at absolute positions and a row's
+    result depends on its own data only; on the CPU the plain version
+    gathers each row's pages in order into a ``[B, max_len, KV, H]``
+    view, the shape the dense slab presents (slicing to ``max_len``, not
+    ``pages_per_slot * page_tokens``, is load-bearing there: reductions
+    are not shape-invariant at the ulp level).
     """
-    _, _, p, n_kv, h_dim = k_arena.shape
-    b, n_pp = page_table.shape
-    w = max_len
-    table = page_table.long()
-    lengths = lengths.long()
-    rows = torch.arange(b, device=lengths.device)
-    wpos = lengths.clamp(0, w - 1)
-    pidx = (lengths // p).clamp(0, n_pp - 1)
-    dest = torch.where(lengths < w, table[rows, pidx], 0)   # full -> scratch
-    off = torch.where(lengths < w, lengths % p, 0)
-
-    def view(arena, i):
-        return arena[i][table].reshape(b, n_pp * p, n_kv, h_dim)[
-            :, :w].contiguous()
-
-    def scatter(i, k_view, v_view):
-        k_arena[i][dest, off] = k_view[rows, wpos]
-        v_arena[i][dest, off] = v_view[rows, wpos]
-
+    table = page_table.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
     hidden = _decode_layers(
-        params, token, lambda i: (view(k_arena, i), view(v_arena, i)),
-        lengths[:, None], lengths + 1, cfg, after=scatter)
+        params, token,
+        lambda i: _LayerKV(k_arena[i], v_arena[i], table, lengths, max_len),
+        lengths[:, None].long(), lengths + 1, cfg)
     return hidden, k_arena, v_arena

@@ -38,12 +38,13 @@ Invariants:
   different logits.
 * **Per-row lengths, one step.** Batch composition only changes the
   ``lengths`` operand and the token rows, never a shape.
-* **The paged view is dense-width.** ``decode_step_paged`` gathers each
-  row's pages into a contiguous view sliced to exactly ``max_len`` — the
-  dense slab's shape — so both layouts run the same reduction over the
-  same valid contents and paged decode is BIT-identical to dense.  Page
-  0 of the arena is reserved scratch: unmapped table entries and
-  suppressed writes (parked rows, rows at ``max_len``) land there.
+* **Both layouts attend through one op.** ``decode_attention`` reads
+  each row's valid positions through its page table (a dense slab is an
+  arena of one ``max_len`` page a row), so both layouts run the same
+  reduction over the same valid contents and paged decode is
+  BIT-identical to dense.  Page 0 of the arena is reserved scratch:
+  unmapped table entries and parked rows' writes land there; a row at
+  ``max_len`` writes nothing.
 * **One stream.** The KV slabs are updated in place (by the step's
   graph and by joins), all on the device's current stream, which orders
   a join behind the in-flight step.

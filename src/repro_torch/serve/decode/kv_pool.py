@@ -31,11 +31,14 @@ must write into (the partial remainder page) is copy-on-write at join.
 Cache-held pages persist after their sessions leave (the cache holds one
 reference) and are evicted LRU under page pressure.
 
-Token exactness: the paged decode step gathers each row's pages in order
-into a contiguous ``[max_len]``-wide view (see
-``models.transformer.decode_step_paged``), so the attention reduction has
-the SAME shape and the SAME valid contents as the dense slab, making
-paged decode bit-identical to dense.
+Token exactness: both layouts' decode steps attend through one op,
+``kernels.decode_attention`` (see ``models.transformer.decode_step_paged``),
+which reads each row's valid positions through its page table (a dense
+slab is an arena of one ``max_len`` page a row).  On the card the kernel
+splits a row at absolute positions and its result depends on that row's
+data only; on the CPU its plain version gathers the pages in order into
+a ``[max_len]``-wide view, the dense slab's shape.  Either way paged
+decode is bit-identical to dense.
 
 Slot state is split across the device/host boundary deliberately:
 
@@ -95,9 +98,9 @@ class KVCachePool:
     Args:
       cfg: the TransformerConfig whose decode this pool backs.
       max_streams: slot count == rows of the fused step (a graph shape).
-      max_len: logical cache width every session sees (and the paged
-        step's gathered-view width, so dense and paged reductions share
-        one shape).
+      max_len: logical cache width every session sees (the decode step
+        attends over at most this many positions of a row, in either
+        layout).
       dtype: cache dtype; defaults to ``cfg.dtype``.
       layout: ``dense`` | ``paged`` | None (resolve via the
         ``kv_pool.layout`` registry strategy / ``$REPRO_KV_LAYOUT``).

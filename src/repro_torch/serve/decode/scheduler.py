@@ -178,7 +178,7 @@ class DecodeScheduler:
         # names the fused step's shape in the engine's step table,
         # qualified by the model name so two schedulers over the SAME
         # engine with different model configs cannot collide.  The paged
-        # layout is a different step (page gather + arena scatter), so it
+        # layout is a different step (its arenas and page table), so it
         # gets a distinct tag.
         if self.pool.layout == "paged":
             self._tag = (f"decode[{max_streams}x{max_len},"
@@ -418,8 +418,8 @@ class DecodeScheduler:
     @functools.cached_property
     def _body(self):
         """The model half of the fused step, layout-resolved.  Closes over
-        ONLY ``cfg`` (plus the pool's view width for the paged gather),
-        not ``self``."""
+        ONLY ``cfg`` (plus the pool's width for the paged step), not
+        ``self``."""
         cfg = self.cfg
         if self.pool.layout == "paged":
             max_len = self.max_len

@@ -936,3 +936,225 @@ def test_custom_op_gives_the_launch_functions_bits(cuda, name):
     torch.cuda.synchronize()
     assert counter.launches == before + 1             # a replay runs no Python
     assert _same_bits(static, want)
+
+
+# ------------------------------------------------- decode attention --
+
+def _attn_case(cuda, seed, b, n, kv, h, page, max_len, dtype, lengths=None):
+    """Arenas of shuffled pages (stale bits in unmapped ones), each row's
+    table mapping its pages up to its write page; the reason cell's rows
+    by default: ragged, two full and two parked."""
+    rng = np.random.default_rng(seed)
+    n_pp = -(-max_len // page)
+    if lengths is None:
+        lengths = rng.integers(1, max_len, b)
+        lengths[:2] = max_len                      # full
+        lengths[2:4] = 0                           # parked
+        lengths[4] = page                          # just crossed a page
+    lengths = np.asarray(lengths, np.int64)
+    table = 1 + rng.permutation(b * n_pp).reshape(b, n_pp)
+    for i, m in enumerate(lengths):
+        table[i, min(int(m), max_len - 1) // page + 1:] = 0
+    table[lengths == 0] = 0
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    return dict(q=rand(b, n, h), k_arena=rand(1 + b * n_pp, page, kv, h),
+                v_arena=rand(1 + b * n_pp, page, kv, h),
+                page_table=torch.from_numpy(table.astype(np.int32)).to(cuda),
+                lengths=torch.from_numpy(lengths.astype(np.int32)).to(cuda),
+                k_new=rand(b, kv, h), v_new=rand(b, kv, h), max_len=max_len)
+
+
+def _copy(args):
+    return {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in args.items()}
+
+
+def _attn_close(got, want, dtype):
+    # fp32 sums in another order; the output rounds to the cache's type:
+    # within tol of each element and of its own (row, head)'s largest
+    # output, so that a row of small outputs is held to its own scale
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    g, w = got.float(), want.float()
+    limit = tol * (w.abs() + w.abs().amax(-1, keepdim=True))
+    bad = (g - w).abs() > limit
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} outputs off, at (row, head) "
+        f"{bad.any(-1).nonzero().tolist()[:8]}; worst "
+        f"{float(((g - w).abs() / limit).max())} of its limit")
+
+
+@pytest.mark.parametrize("shape", [
+    (64, 14, 2, 64, 128, 5632, torch.bfloat16),    # the reason cell's step
+    (16, 16, 16, 128, 64, 1000, torch.bfloat16),   # r = 1 (qwen2-moe)
+    (16, 64, 8, 128, 128, 3000, torch.bfloat16),   # r = 8
+    (12, 32, 2, 128, 16, 777, torch.bfloat16),     # r = 16: two head groups
+    (8, 4, 1, 16, 16, 70, torch.float32),          # the reduced configs
+    (8, 4, 2, 64, 4, 33, torch.float32),          # a 128-position split
+    (8, 12, 4, 16, 16, 300, torch.bfloat16)])      # r = 3: a padded head
+def test_decode_attention_kernel_matches_plain(cuda, shape):
+    """The kernel against the plain version (gathered view, fp32 einsums)
+    at the reason cell's shapes and at other head sizes and ratios, with
+    full, parked and page-crossing rows; the arenas' real pages after
+    the step bit for bit the plain version's."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    b, n, kv, h, page, max_len, dtype = shape
+    args = _attn_case(cuda, b + h, b, n, kv, h, page, max_len, dtype)
+    plain = _copy(args)
+    before = decode_attention_cuda.launches
+    got = decode_attention(**args)
+    assert decode_attention_cuda.launches == before + 1
+    want = decode_attention_ref(**plain)
+    torch.cuda.synchronize()
+    _attn_close(got, want, dtype)
+    for side in ("k_arena", "v_arena"):
+        assert torch.equal(args[side][1:], plain[side][1:]), side
+    # the same inputs again: the same bits (no atomics, a fixed order)
+    again = decode_attention(**_copy(plain))
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+def test_decode_attention_long_rows_end_mid_split(cuda):
+    """At the reason cell's step, every row long and its last split
+    partial (the split is 256 positions at bf16, head_dim 64), so that
+    each row's merge weighs a short last split against full ones."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    b, max_len = 64, 5632
+    rng = np.random.default_rng(7)
+    lengths = rng.integers(max_len - 1000, max_len - 1, b)
+    lengths[(lengths + 1) % 256 == 0] -= 1
+    args = _attn_case(cuda, 7, b, 14, 2, 64, 128, max_len, torch.bfloat16,
+                      lengths=lengths)
+    plain = _copy(args)
+    got = decode_attention(**args)
+    want = decode_attention_ref(**plain)
+    torch.cuda.synchronize()
+    _attn_close(got, want, torch.bfloat16)
+    for side in ("k_arena", "v_arena"):
+        assert torch.equal(args[side][1:], plain[side][1:]), side
+
+
+def test_decode_attention_row_depends_on_its_own_data(cuda):
+    """A row's output is the same bits alone, in a batch, over a dense
+    slab and at another max_len: the splits sit at absolute positions."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    args = _attn_case(cuda, 5, 6, 14, 2, 64, 128, 1200, torch.bfloat16,
+                      lengths=[700, 0, 1199, 1200, 255, 256])
+    full = decode_attention(**_copy(args))
+    for i in range(6):
+        one = _copy(args)
+        for key in ("q", "page_table", "lengths", "k_new", "v_new"):
+            one[key] = one[key][i:i + 1].contiguous()
+        assert torch.equal(decode_attention(**one)[0], full[i]), i
+    wider = _copy(args)
+    wider["max_len"] = 1280
+    got = decode_attention(**wider)
+    for i in (0, 2, 4, 5):                 # rows below the old max_len
+        assert torch.equal(got[i], full[i]), i
+    # each row's pages as one dense slab of max_len positions
+    a = _copy(args)
+    b, n_pp = a["page_table"].shape
+    slab_k = a["k_arena"][a["page_table"].long()].reshape(
+        b, -1, 2, 64)[:, :1200].contiguous()
+    slab_v = a["v_arena"][a["page_table"].long()].reshape(
+        b, -1, 2, 64)[:, :1200].contiguous()
+    table = torch.arange(b, dtype=torch.int32, device=cuda)[:, None]
+    dense = decode_attention(a["q"], slab_k, slab_v, table, a["lengths"],
+                             a["k_new"], a["v_new"], 1200)
+    torch.cuda.synchronize()
+    live = [0, 2, 4, 5]                    # parked row 1 reads scratch
+    assert torch.equal(dense[live], full[live])
+
+
+def test_decode_attention_graph_replays_new_lengths_and_tables(cuda):
+    """One capture; lengths and page tables changed in place between
+    replays: each replay gives the eager kernel's bits on the same
+    inputs, and the plain version's within tolerance."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    static = _attn_case(cuda, 11, 32, 14, 2, 64, 128, 2048, torch.bfloat16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        decode_attention(**_copy(static))          # warm-up off-graph
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = decode_attention_cuda.launches
+    with torch.cuda.graph(graph):
+        out = decode_attention(**static)
+    assert decode_attention_cuda.launches == before + 1
+    for seed in (12, 13, 14):
+        fresh = _attn_case(cuda, seed, 32, 14, 2, 64, 128, 2048,
+                           torch.bfloat16)
+        for key in ("q", "k_arena", "v_arena", "page_table", "lengths",
+                    "k_new", "v_new"):
+            static[key].copy_(fresh[key])
+        eager, plain = _copy(fresh), _copy(fresh)
+        graph.replay()
+        want = decode_attention(**eager)
+        ref = decode_attention_ref(**plain)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), seed
+        # scratch page 0 takes the parked rows' racing writes: real pages
+        assert torch.equal(static["k_arena"][1:], eager["k_arena"][1:]), seed
+        _attn_close(out, ref, torch.bfloat16)
+    assert decode_attention_cuda.launches == before + 4
+
+
+def test_dense_and_paged_decode_steps_bit_identical(cuda):
+    """decode_step_pooled over dense slabs and decode_step_paged over a
+    shuffled arena of the same contents give the same hidden bits, and
+    the step's rows land in both; every layer's attention is the kernel
+    (two launches of the wrapper a step, one a layer)."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.models import transformer as T
+    cfg = T.TransformerConfig(name="gpu-attn", n_layers=2, d_model=128,
+                              n_heads=14, n_kv_heads=2, head_dim=64,
+                              d_ff=256, vocab=512, qkv_bias=True,
+                              tie_embeddings=True, dtype=torch.bfloat16,
+                              kv_chunk=32)
+    params = T.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                           device=cuda)
+    rng = np.random.default_rng(9)
+    b, w, p = 6, 600, 128
+    n_pp = -(-w // p)
+    lengths = np.array([0, 1, 255, 256, 599, 600])
+    shape = (cfg.n_layers, b, w, cfg.n_kv_heads, cfg.head_dim)
+    k = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    pids = 1 + rng.permutation(b * n_pp).reshape(b, n_pp)
+    arena_shape = (cfg.n_layers, 1 + b * n_pp, p, cfg.n_kv_heads,
+                   cfg.head_dim)
+    ka = torch.zeros(arena_shape, dtype=torch.bfloat16, device=cuda)
+    va = torch.zeros_like(ka)
+    padded = n_pp * p
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, padded - w))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, padded - w))
+    for i in range(b):
+        for j in range(n_pp):
+            ka[:, pids[i, j]] = kp[:, i, j * p:(j + 1) * p]
+            va[:, pids[i, j]] = vp[:, i, j * p:(j + 1) * p]
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, b)).to(cuda)
+    len_t = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+    table = torch.from_numpy(pids.astype(np.int32)).to(cuda)
+    before = decode_attention_cuda.launches
+    with torch.no_grad():
+        dh, dk, _ = T.decode_step_pooled(params, tok, k, v, len_t, cfg)
+        ph, pk, _ = T.decode_step_paged(params, tok, ka, va, table, len_t,
+                                        cfg, w)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 2 * cfg.n_layers
+    assert torch.equal(dh, ph)
+    for i, m in enumerate(lengths):
+        if m < w:
+            assert torch.equal(pk[:, pids[i, m // p], m % p], dk[:, i, m]), i

@@ -2919,7 +2919,9 @@ def check_decode_step(dec, head, prompts, blocking, counters, smi,
                       new_tokens=DECODE_NEW):
     """Outside the counts, on ``DECODE_STREAMS`` sessions mid-flight: one
     replayed step against the eager step on copies of its inputs (the
-    same bits), its head against ``lss_forward`` (the same bits) or an
+    same bits; an MoE step's routing counts too, which must come to
+    rows x top_k a layer), its head against ``lss_forward`` (the same
+    bits) or an
     fp32 GEMM (within ``DECODE_FULL_TOL``, ids exact away from ties),
     host ms of a replay and of an eager step; then the sessions run to
     their end and must give their blocking tokens."""
@@ -2935,14 +2937,34 @@ def check_decode_step(dec, head, prompts, blocking, counters, smi,
         snap = [sched.tok.clone(), ops[0].clone(), ops[1].clone(),
                 *(torch.from_numpy(o).to(dec.device) for o in ops[2:])]
         sched.tick()
-        hidden, ho = sched._inflight.out
-        want_hidden, want = step.fn(dec.params, *snap)
+        hidden, ho, *routing = sched._inflight.out
+        want_hidden, want, *want_routing = step.fn(dec.params, *snap)
         torch.cuda.synchronize()
         require(same_tensor_bits(hidden, want_hidden)
                 and same_tensor_bits(ho.ids, want.ids)
-                and same_tensor_bits(ho.logits, want.logits),
+                and same_tensor_bits(ho.logits, want.logits)
+                and len(routing) == len(want_routing)
+                and all(same_tensor_bits(a, b)
+                        for a, b in zip(routing, want_routing)),
                 f"decode {head}: the replay differs from the eager step")
         del snap
+        routing_check = {}
+        require(bool(routing) == (dec.cfg.moe_style != "none"),
+                f"decode {head}: routing counts iff the model has experts")
+        if routing:
+            # an MoE step routes every pool row, parked ones too, to
+            # top_k distinct experts in each layer
+            counts = routing[0].cpu().numpy()
+            rows = int(sched.tok.shape[0])
+            require(counts.shape == (dec.cfg.n_layers,
+                                     dec.cfg.n_experts_padded)
+                    and (counts.sum(1) == rows * dec.cfg.moe_top_k).all()
+                    and not counts[:, dec.cfg.n_experts:].any(),
+                    f"decode {head}: routing counts {counts.sum(1)} are not "
+                    f"{rows} rows x top {dec.cfg.moe_top_k} a layer")
+            routing_check = {"routing_counts": "bit-identical",
+                             "routed_a_layer": rows * dec.cfg.moe_top_k,
+                             "experts_hit": int((counts > 0).sum())}
         q = hidden.float()
         if head == "lss":
             ref = lss_forward(q, dec.engine.index_for(sched._epoch), None, 1)
@@ -2981,7 +3003,7 @@ def check_decode_step(dec, head, prompts, blocking, counters, smi,
     return {"head": head, "rows": DECODE_STREAMS,
             "mean_length": float(lengths.mean()), "graph_ms": graph_ms,
             "eager_ms": eager_ms, "graph_vs_eager": "bit-identical",
-            **head_check, "device": smi}, q
+            **head_check, **routing_check, "device": smi}, q
 
 
 def decode_kernels(index, q, q_calib, smi):

@@ -9,6 +9,14 @@ slots are zero-padded.  Nothing here synchronises with the host (no
 ``.item()``, ``nonzero`` or boolean indexing), so a decode step over it
 is captured as a CUDA graph.
 
+``capacity_factor=None`` is dropless, as Hugging Face's
+``Qwen2MoeSparseMoeBlock`` is: the static path's capacity is then the
+group's token count (a token's top-k experts are distinct, so an expert
+takes it at most once and nothing can drop; a decode step keeps static
+shapes and still captures), and an eager caller (``static=False``:
+prefill, training) runs each expert over its routed tokens only, grouped
+by a sort whose group sizes are read on the host.
+
 Every padded expert runs over the whole ``[G, E, C, D]`` buffer, as in
 the JAX package: the expert products are plain batched products
 (``torch.einsum``), which the JAX package leaves to XLA too.  At decode
@@ -16,8 +24,10 @@ that reads every expert's weights each step; a gather of the routed
 experts only is later work (ROADMAP Queue 2).
 
 Supports the two MoE archs:
-  * qwen2-moe: 60 routed (padded to 64) top-4, renormalised probs, + 1
-    shared expert with a sigmoid gate (``models.transformer``);
+  * qwen2-moe: 60 routed (padded to 64) top-4, + 1 shared expert with a
+    sigmoid gate (``models.transformer``); the top-k probabilities are
+    renormalised (``norm_topk_prob=True``, the JAX package's) or used as
+    the softmax gave them (False: the published Qwen1.5-MoE-A2.7B);
   * arctic: 128 routed top-2 + a DENSE residual MLP in parallel.
 
 The JAX package's group path (``n_groups`` > 1, a ``vmap`` over groups)
@@ -73,11 +83,14 @@ class MoEConfig(NamedTuple):
     d_model: int
     d_ff: int                # per-expert hidden
     n_experts_padded: int    # physical experts
-    capacity_factor: float = 1.25
+    capacity_factor: float | None = 1.25     # None: dropless
     router_dtype: str = "float32"
     # GShard-style dispatch groups: capacity is PER GROUP, each group with
     # its own sort
     n_groups: int = 1
+    # the top-k probabilities divided by their sum (the JAX package's
+    # routing), or used as they are
+    norm_topk_prob: bool = True
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEConfig
@@ -107,7 +120,8 @@ def _route(x, w_router, cfg: MoEConfig):
     # are gathered from ``probs``, so the gradient reaches the router
     top_e = topk_lowest_index(probs.detach(), cfg.top_k)[1]    # [T, k]
     top_p = probs.gather(-1, top_e)
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    if cfg.norm_topk_prob:
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
     # Switch-style aux loss: E * sum_e f_e * p_e
     me = probs.mean(0)                                         # [Ep]
     ce = torch.zeros(cfg.n_experts_padded, device=probs.device).index_add_(
@@ -141,24 +155,67 @@ def dispatch_indices(top_e: torch.Tensor, n_experts: int, capacity: int
     return pos_sorted.gather(-1, inv), keep_sorted.gather(-1, inv)
 
 
-def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig
+def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig, *,
+            static: bool = True, counts: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full MoE FFN on flattened tokens ``[T, D]`` -> (out, aux_loss).
 
     Group-local dispatch: tokens are split into ``n_groups`` groups (one
     when ``n_groups`` does not divide T), each with its own capacity and
     its own sort; every expert's SwiGLU runs over its ``[C, D]`` buffer.
+    Dropless (``capacity_factor`` None) and not ``static``: each expert's
+    SwiGLU over its routed tokens only (:func:`_grouped`), which reads
+    the group sizes on the host.  ``counts`` (``[Ep]`` int32, one device
+    only), if given, receives the tokens routed to each expert.
 
     params: router [D, Ep], w_gate/w_up [Ep, D, F], w_down [Ep, F, D].
     """
     if is_dtensor(x):
+        if counts is not None:
+            raise NotImplementedError("routing counts on a mesh")
         return _moe_ffn_mesh(x, params, cfg)
     t = x.shape[0]
     top_e, top_p, aux = router_topk(x, params["router"], cfg)
-    out = _dispatch_combine(x, top_e, top_p, params["w_gate"],
-                            params["w_up"], params["w_down"], cfg,
-                            cfg.n_groups if t % cfg.n_groups == 0 else 1, 0)
+    if cfg.capacity_factor is None and not static:
+        out, routed = _grouped(x, top_e, top_p, params["w_gate"],
+                               params["w_up"], params["w_down"],
+                               cfg.n_experts_padded)
+    else:
+        out = _dispatch_combine(x, top_e, top_p, params["w_gate"],
+                                params["w_up"], params["w_down"], cfg,
+                                cfg.n_groups if t % cfg.n_groups == 0 else 1,
+                                0)
+        routed = None
+    if counts is not None:
+        if routed is None:               # no host sync: one-hot, summed
+            routed = (top_e.reshape(-1, 1) == torch.arange(
+                cfg.n_experts_padded, device=top_e.device)).sum(0)
+        counts.copy_(routed)
     return out, aux
+
+
+def _grouped(x, top_e, top_p, w_gate, w_up, w_down, ep: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dropless and eager: the (token, slot) pairs sorted by expert, each
+    expert's SwiGLU over its own run of them (no ``[E, T, D]`` buffer),
+    put back in order and combined as :func:`_dispatch_combine` combines
+    -> (out [T, D], tokens per expert [Ep])."""
+    t, d = x.shape
+    k = top_e.shape[1]
+    flat = top_e.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    routed = torch.bincount(flat, minlength=ep)
+    xs = x[order // k]                                         # [T*k, D]
+    ys, start = [], 0
+    for e, n in enumerate(routed.tolist()):                    # host sync
+        if n:
+            h = xs[start:start + n]
+            ys.append((F.silu(h @ w_gate[e]) * (h @ w_up[e])) @ w_down[e])
+            start += n
+    yk = torch.empty_like(xs)
+    yk[order] = torch.cat(ys)
+    w = top_p.reshape(t * k, 1).to(yk.dtype)
+    return (yk * w).reshape(t, k, d).sum(1), routed
 
 
 def _dispatch_combine(x, top_e, top_p, w_gate, w_up, w_down,
@@ -170,7 +227,8 @@ def _dispatch_combine(x, top_e, top_p, w_gate, w_up, w_down,
     t, d = x.shape
     ep, k = cfg.n_experts_padded, cfg.top_k
     tg = t // g_n
-    capacity = max(8, int(cfg.capacity_factor * tg * k / ep))
+    capacity = (tg if cfg.capacity_factor is None      # dropless
+                else max(8, int(cfg.capacity_factor * tg * k / ep)))
     pos, keep = dispatch_indices(top_e.reshape(g_n, tg, k), ep,
                                  capacity)                     # [G, Tg*k]
     xk = x.reshape(g_n, tg, d).repeat_interleave(k, dim=1)     # [G, Tg*k, D]

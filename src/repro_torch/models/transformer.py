@@ -70,7 +70,7 @@ from repro_torch.utils.sharding import (P, contiguous_stride, embedding,
 __all__ = ["TransformerConfig", "init_params", "param_specs", "cache_specs",
            "forward", "logits_head", "gold_logit", "lm_loss", "KVCache",
            "init_cache", "prefill", "decode_step", "decode_step_pooled",
-           "decode_step_paged"]
+           "decode_step_paged", "new_expert_counts"]
 
 
 class TransformerConfig(NamedTuple):
@@ -93,7 +93,8 @@ class TransformerConfig(NamedTuple):
     moe_top_k: int = 0
     moe_d_ff: int = 0
     shared_expert_ff: int = 0
-    capacity_factor: float = 1.25
+    # None: dropless (``models.moe``), as the published MoE models serve
+    capacity_factor: float | None = 1.25
     moe_fsdp: bool = False
     moe_groups: int = 1
     dtype: torch.dtype = torch.bfloat16
@@ -104,6 +105,9 @@ class TransformerConfig(NamedTuple):
     # fields carry over as they are: the port's layers always run as a
     # Python loop, which is JAX's "unroll"
     layers_impl: str = "scan"
+    # the MoE's top-k probabilities renormalised (the JAX package's), or
+    # used as the softmax gave them (Qwen1.5-MoE-A2.7B's published config)
+    norm_topk_prob: bool = True
 
     @property
     def moe_cfg(self) -> MoEConfig | None:
@@ -111,7 +115,8 @@ class TransformerConfig(NamedTuple):
             return None
         return MoEConfig(self.n_experts, self.moe_top_k, self.d_model,
                          self.moe_d_ff, self.n_experts_padded,
-                         self.capacity_factor, n_groups=self.moe_groups)
+                         self.capacity_factor, n_groups=self.moe_groups,
+                         norm_topk_prob=self.norm_topk_prob)
 
     def param_count(self) -> int:
         """Analytic parameter count (for MODEL_FLOPS cross-checks)."""
@@ -415,10 +420,14 @@ def _rows_spec(x) -> P:
              *([None] * (x.dim() - 1)))
 
 
-def _ffn_block(x, lp, cfg: TransformerConfig):
+def _ffn_block(x, lp, cfg: TransformerConfig, mode: str = "train",
+               counts=None):
     """The dense SwiGLU, the MoE, or both in parallel, plus the shared
     expert with its sigmoid gate -> (x + out, the MoE's aux loss; None
-    for a dense layer)."""
+    for a dense layer).  A decode step routes with static shapes (a CUDA
+    graph), the other modes may read group sizes on the host (a dropless
+    MoE's grouped experts); ``counts`` ([Ep] int32) receives the layer's
+    tokens per expert."""
     b, s, d = x.shape
     rows = _rows_spec(x)
     h = maybe_shard(L.rms_norm(x, lp["ln2"]), rows)
@@ -428,7 +437,8 @@ def _ffn_block(x, lp, cfg: TransformerConfig):
                                      lp["w_down"]), rows)
     if cfg.moe_style == "none":
         return x + dense, None
-    moe_out, aux = moe_ffn(h.reshape(b * s, d), lp["moe"], cfg.moe_cfg)
+    moe_out, aux = moe_ffn(h.reshape(b * s, d), lp["moe"], cfg.moe_cfg,
+                           static=mode == "decode", counts=counts)
     out = moe_out.reshape(b, s, d)
     if dense is not None:
         out = dense + out
@@ -441,19 +451,30 @@ def _ffn_block(x, lp, cfg: TransformerConfig):
     return x + out, aux
 
 
-def _layer(x, lp, cfg, rope, mode, cache=None, kv_len=None):
+def _layer(x, lp, cfg, rope, mode, cache=None, kv_len=None, counts=None):
     x, new_cache = _attn_block(x, lp, cfg, rope, mode, cache, kv_len)
-    x, aux = _ffn_block(x, lp, cfg)
+    x, aux = _ffn_block(x, lp, cfg, mode, counts)
     return x, new_cache, aux
 
 
+def new_expert_counts(cfg: TransformerConfig, device
+                      ) -> torch.Tensor | None:
+    """A buffer for one pass's routing counts, tokens per expert a layer
+    (``[n_layers, Ep]`` int32), or None for a dense model."""
+    if cfg.moe_style == "none":
+        return None
+    return torch.zeros((cfg.n_layers, cfg.n_experts_padded),
+                       dtype=torch.int32, device=device)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            mode: str = "train"):
+            mode: str = "train", expert_counts: torch.Tensor | None = None):
     """tokens [B, S] -> (hidden [B, S, D] after final norm, caches, aux).
 
     ``caches`` (prefill only) is ``(k, v)``, each ``[L, B, S, KV, H]``;
     ``aux`` is the MoE balance loss summed over the layers, 0 for the
-    dense architectures."""
+    dense architectures.  ``expert_counts`` (:func:`new_expert_counts`),
+    if given, receives each layer's tokens per expert."""
     x = maybe_shard(embedding(params["embed"], tokens),
                     P("data", None, None)).to(cfg.dtype)
     # every row's positions are 0..S-1: one row of cos/sin broadcasts
@@ -468,11 +489,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
+        counts = None if expert_counts is None else expert_counts[i]
         if remat:
             x, cache, aux_i = torch.utils.checkpoint.checkpoint(
-                _layer, x, lp, cfg, rope, mode, use_reentrant=False)
+                _layer, x, lp, cfg, rope, mode, None, None, counts,
+                use_reentrant=False)
         else:
-            x, cache, aux_i = _layer(x, lp, cfg, rope, mode)
+            x, cache, aux_i = _layer(x, lp, cfg, rope, mode, counts=counts)
         if aux_i is not None:
             aux = aux + aux_i
         if mode == "prefill":
@@ -586,9 +609,12 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            max_len: int) -> tuple[torch.Tensor, KVCache]:
-    """Run the prompt; returns (final-norm hidden [B, S, D], cache)."""
-    hidden, (k, v), _ = forward(params, tokens, cfg, mode="prefill")
+            max_len: int, expert_counts: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, KVCache]:
+    """Run the prompt; returns (final-norm hidden [B, S, D], cache).
+    ``expert_counts``: as :func:`forward`'s."""
+    hidden, (k, v), _ = forward(params, tokens, cfg, mode="prefill",
+                                expert_counts=expert_counts)
     pad = max_len - tokens.shape[1]         # [L, B, S, KV, H]
     if pad > 0:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -599,14 +625,20 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
 
 def _decode_layers(params: dict, token: torch.Tensor,
                    layer_cache: Callable, positions: torch.Tensor, kv_len,
-                   cfg: TransformerConfig) -> torch.Tensor:
+                   cfg: TransformerConfig,
+                   expert_counts: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """Shared one-token layer loop.  token [B]; ``layer_cache(i)`` gives
     layer i's KV, which the layer writes in place: a :class:`_LayerKV`
     (``decode_attention``), or a ``DTensor`` cache's ``(k, v)`` ``[B, S,
     KV, H]`` with kv_len scalar or [B]; positions [B, 1] -> hidden [B, D].
     Every op is row-parallel over B, but for the MoE's capacity: a row's
     tokens drop only when more than C = max(8, ...) rows pick one expert,
-    so at B <= 8 nothing drops."""
+    so at B <= 8 nothing drops; a dropless configuration
+    (``capacity_factor`` None) sizes C to the B rows, so its rows are
+    independent at any B.  ``expert_counts`` (:func:`new_expert_counts`),
+    if given, receives each layer's tokens per expert, with static shapes
+    and no host sync (inside a CUDA graph)."""
     x = embedding(params["embed"], token[:, None]).to(cfg.dtype)  # [B, 1, D]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
     k0 = layer_cache(0)[0]
@@ -618,7 +650,8 @@ def _decode_layers(params: dict, token: torch.Tensor,
         rope = tuple(_replicated_like(t, x) for t in rope)
     for i in range(cfg.n_layers):
         x, _, _ = _layer(x, _layer_params(params, i), cfg, rope, "decode",
-                         layer_cache(i), kv_len)
+                         layer_cache(i), kv_len,
+                         None if expert_counts is None else expert_counts[i])
     return L.rms_norm(x[:, 0], params["final_norm"])
 
 
@@ -646,7 +679,8 @@ def decode_step(params: dict, token: torch.Tensor, cache: KVCache,
 
 def decode_step_pooled(params: dict, token: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, lengths: torch.Tensor,
-                       cfg: TransformerConfig
+                       cfg: TransformerConfig,
+                       expert_counts: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step over a slot pool with PER-ROW cache lengths.
 
@@ -656,16 +690,19 @@ def decode_step_pooled(params: dict, token: torch.Tensor, k: torch.Tensor,
 
     Row ``i`` computes exactly what :func:`decode_step` computes for a
     batch-1 cache of the same width ``S_max`` — every op is row-parallel.
+    ``expert_counts``: as :func:`_decode_layers`'.
     """
     hidden = _decode_layers(params, token, _dense_kv(k, v, lengths),
-                            lengths[:, None].long(), lengths + 1, cfg)
+                            lengths[:, None].long(), lengths + 1, cfg,
+                            expert_counts)
     return hidden, k, v
 
 
 def decode_step_paged(params: dict, token: torch.Tensor,
                       k_arena: torch.Tensor, v_arena: torch.Tensor,
                       page_table: torch.Tensor, lengths: torch.Tensor,
-                      cfg: TransformerConfig, max_len: int
+                      cfg: TransformerConfig, max_len: int,
+                      expert_counts: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`decode_step_pooled` over PAGED KV storage.
 
@@ -688,12 +725,13 @@ def decode_step_paged(params: dict, token: torch.Tensor,
     gathers each row's pages in order into a ``[B, max_len, KV, H]``
     view, the shape the dense slab presents (slicing to ``max_len``, not
     ``pages_per_slot * page_tokens``, is load-bearing there: reductions
-    are not shape-invariant at the ulp level).
+    are not shape-invariant at the ulp level).  ``expert_counts``: as
+    :func:`_decode_layers`'.
     """
     table = page_table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     hidden = _decode_layers(
         params, token,
         lambda i: _LayerKV(k_arena[i], v_arena[i], table, lengths, max_len),
-        lengths[:, None].long(), lengths + 1, cfg)
+        lengths[:, None].long(), lengths + 1, cfg, expert_counts)
     return hidden, k_arena, v_arena

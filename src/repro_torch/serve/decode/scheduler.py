@@ -33,7 +33,18 @@ current stream, so the stream runs them in the order they were issued.
 Token-exactness: row i of the fused step computes exactly what a
 single-stream run computes at the same pool shape, so interleaved decode
 is bit-identical to sequential ``LMDecoder.generate`` calls on the same
-decoder (full AND lss heads).
+decoder (full AND lss heads).  For an MoE model this needs a dropless
+configuration (``capacity_factor`` None), or rows few enough that no
+expert overflows its capacity.
+
+Routing counts (MoE models only): the fused step also writes each
+layer's tokens per expert (``[n_layers, Ep]`` int32) into a static
+output of its graph, which comes home in the step's own
+``output.copy``; a ``tick`` span carries the counts of the step it
+collected, a ``prefill`` span those of its forward, as ``experts_hit``
+(experts with a token, summed over the layers), ``expert_max`` (the most
+tokens at one expert in any layer) and ``moe_layers``.  A dense model's
+step, its outputs and its copy have none of this.
 """
 
 from __future__ import annotations
@@ -75,6 +86,15 @@ def _no_span(name: str):
     return NOOP_SPAN
 
 
+def _routing_attrs(counts: np.ndarray | None) -> dict:
+    """A span's routing attributes from one pass's tokens per expert
+    ``[n_layers, Ep]`` (none for a dense model)."""
+    if counts is None:
+        return {}
+    return {"experts_hit": int((counts > 0).sum()),
+            "expert_max": int(counts.max()), "moe_layers": counts.shape[0]}
+
+
 def _prefill_bucket(plen: int) -> int:
     """Power-of-two prefill bucket for a prompt length (floor 8).
 
@@ -88,14 +108,16 @@ def _prefill_bucket(plen: int) -> int:
     return max(_MIN_PREFILL_BUCKET, 1 << max(plen - 1, 0).bit_length())
 
 
-def _prefill(params, prompt: torch.Tensor, cfg, max_len: int):
+def _prefill(params, prompt: torch.Tensor, cfg, max_len: int,
+             expert_counts: torch.Tensor | None = None):
     """Prefill at a bucket width, counted per (cfg, bucket)."""
     from repro_torch.models import transformer as T
     key = (cfg.name, max_len)
     with _PREFILL_LOCK:
         if key not in _PREFILL_COMPILES:
             _PREFILL_COMPILES[key] = 1
-    return T.prefill(params, prompt, cfg, max_len=max_len)
+    return T.prefill(params, prompt, cfg, max_len=max_len,
+                     expert_counts=expert_counts)
 
 
 class DecodeStats(NamedTuple):
@@ -126,7 +148,7 @@ class DecodeStats(NamedTuple):
 
 class _Inflight(NamedTuple):
     host: HostOutput             # the step's ids on their way to the host
-    out: tuple                   # (hidden, HeadOutput) of the step, cloned
+    out: tuple                   # (hidden, HeadOutput, *routing), cloned
     snapshot: list               # [(slot, session)] active at dispatch
 
 
@@ -282,9 +304,10 @@ class DecodeScheduler:
                 with span("tick.dispatch"):
                     inflight = self._dispatch()
                 prev, self._inflight = self._inflight, inflight
+                routing = None
                 if prev is not None:
                     with span("tick.collect"):
-                        self._collect(prev)
+                        routing = self._collect(prev)
                 if self._epoch is not None and self.idle:
                     # generation drained: release the pinned index epoch
                     e, self._epoch = self._epoch, None
@@ -292,7 +315,8 @@ class DecodeScheduler:
                 tick_span.set(dispatched=self._inflight is not None,
                               collected=prev is not None,
                               active=self.pool.n_active,
-                              slots=self.max_streams)
+                              slots=self.max_streams,
+                              **_routing_attrs(routing))
             return prev is not None or self._inflight is not None \
                 or not self.idle
 
@@ -341,8 +365,9 @@ class DecodeScheduler:
             slot = self.pool.alloc()
             try:
                 with obs.span("prefill", sid=sess.sid, slot=slot,
-                              plen=int(sess.prompt.shape[0])):
-                    tok0 = self._prefill(slot, sess.prompt)
+                              plen=int(sess.prompt.shape[0])) as pspan:
+                    tok0, routing = self._prefill(slot, sess.prompt)
+                    pspan.set(**_routing_attrs(routing))
             except KVPoolExhaustedError as exc:
                 # the join could not get pages (it unwound cleanly):
                 # shed this one session, keep admitting/ticking the rest
@@ -360,8 +385,11 @@ class DecodeScheduler:
             self.sessions[slot] = sess
             self._emit(sess, tok0, time.perf_counter())
 
-    def _prefill(self, slot: int, prompt_np: np.ndarray) -> int:
-        """Fill ``slot``'s KV for a prompt and return its first token.
+    def _prefill(self, slot: int, prompt_np: np.ndarray
+                 ) -> tuple[int, np.ndarray | None]:
+        """Fill ``slot``'s KV for a prompt and return its first token and
+        the forward's routing counts (None for a dense model or where no
+        forward ran).
 
         Fast path: with the paged layout, a prompt whose every page is
         already in the pool's prefix cache joins straight from cached
@@ -389,13 +417,15 @@ class DecodeScheduler:
             with self._lock:
                 self._n_prefill_skipped += 1
             obs.event("prefill_skip", plen=plen, bucket=bucket)
-            return memo[1]
+            return memo[1], None
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :plen] = prompt_np
+        from repro_torch.models import transformer as T
+        counts = T.new_expert_counts(self.cfg, self.engine.device)
         with obs.span("prefill.forward"), torch.no_grad():
             hidden, cache = _prefill(
                 self.params, torch.from_numpy(padded).to(self.engine.device),
-                self.cfg, bucket)
+                self.cfg, bucket, counts)
         with obs.span("prefill.join"):
             k_new, v_new = cache.k, cache.v
             if bucket > self.max_len:             # pool never reads past
@@ -412,26 +442,33 @@ class DecodeScheduler:
         self._tok0_cache[key] = (idx, tok0)
         if len(self._tok0_cache) > self._tok0_cache_cap:
             self._tok0_cache.popitem(last=False)
-        return tok0
+        # the head's rank waited for the forward: a copy of [L, Ep] home
+        return tok0, None if counts is None else counts.cpu().numpy()
 
     # ------------------------------------------------------------- dispatch --
     @functools.cached_property
     def _body(self):
         """The model half of the fused step, layout-resolved.  Closes over
         ONLY ``cfg`` (plus the pool's width for the paged step), not
-        ``self``."""
+        ``self``.  An MoE model's body returns its routing counts after
+        ``v``."""
         cfg = self.cfg
         if self.pool.layout == "paged":
             max_len = self.max_len
 
             def body(params, tok, k, v, page_table, lengths):
                 from repro_torch.models import transformer as T
-                return T.decode_step_paged(params, tok, k, v, page_table,
-                                           lengths, cfg, max_len)
+                counts = T.new_expert_counts(cfg, tok.device)
+                out = T.decode_step_paged(params, tok, k, v, page_table,
+                                          lengths, cfg, max_len, counts)
+                return out if counts is None else (*out, counts)
         else:
             def body(params, tok, k, v, lengths):
                 from repro_torch.models import transformer as T
-                return T.decode_step_pooled(params, tok, k, v, lengths, cfg)
+                counts = T.new_expert_counts(cfg, tok.device)
+                out = T.decode_step_pooled(params, tok, k, v, lengths, cfg,
+                                           counts)
+                return out if counts is None else (*out, counts)
 
         return body
 
@@ -448,9 +485,10 @@ class DecodeScheduler:
         step = self.decode_step()
         # writes the next tokens into self.tok and the KV into the pool
         out = step(self.params, self.tok, *self.pool.step_operands())
-        # the ids leave through pinned copies and an event made now,
-        # before the next replay can run
-        host = HostOutput(out[1].ids)
+        # the ids, and whatever the step returns after its HeadOutput (an
+        # MoE step's routing counts), leave through pinned copies and an
+        # event made now, before the next replay can run
+        host = HostOutput((out[1].ids, *out[2:]))
         # snapshot BEFORE any oom shed below nulls a slot: collect skips
         # finished sessions by flag, not by table lookup
         snapshot = [(i, self.sessions[i]) for i in active]
@@ -466,13 +504,15 @@ class DecodeScheduler:
         return _Inflight(host, out, snapshot)
 
     # -------------------------------------------------------------- collect --
-    def _collect(self, item: _Inflight) -> None:
-        ids = item.host.wait()                  # this step's event only
+    def _collect(self, item: _Inflight) -> np.ndarray | None:
+        """Emit a step's tokens; returns its routing counts (MoE)."""
+        ids, *routing = item.host.wait()        # this step's event only
         t1 = time.perf_counter()
         for slot, sess in item.snapshot:
             if sess.finished:                    # retired after dispatch:
                 continue                         # a wasted row, not a token
             self._emit(sess, max(int(ids[slot, 0]), 0), t1)
+        return routing[0] if routing else None
 
     def _emit(self, sess: DecodeSession, tok: int, t: float) -> None:
         sess.stream.append(tok, t)

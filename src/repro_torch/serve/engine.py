@@ -553,7 +553,9 @@ class Engine:
         ``body(params, tok, k, v, *ops) -> (hidden [B, d], k, v)`` writes
         the step's KV into the pool's ``k``/``v`` in place; ``ops`` are
         the layout's host operands — dense ``(lengths,)``, paged
-        ``(page_table, lengths)``.  The returned :class:`Step` maps
+        ``(page_table, lengths)``.  A body may return more after ``v``
+        (an MoE model's routing counts), which the step passes on after
+        its own outputs.  The returned :class:`Step` maps
         ``(params, tok, k, v, *ops)`` to ``(hidden, HeadOutput)``, with
         ``tok_next = max(ids[:, 0], 0)`` written into ``tok`` on the
         device, so a decode loop chains steps without a host round trip
@@ -585,17 +587,17 @@ class Engine:
                 local = getattr(head, "local", head)
 
                 def fn(params, tok, k, v, *ops):
-                    hidden, _, _ = body(params, tok, k, v, *ops)
+                    hidden, _, _, *extra = body(params, tok, k, v, *ops)
                     out = local(hidden.float())
                     if merge is None:
                         tok.copy_(out.ids[:, 0].clamp(min=0))
-                    return hidden, out
+                    return (hidden, out, *extra)
 
                 def post(params, tok, k, v, out):
-                    hidden, part = out
+                    hidden, part, *extra = out
                     ho = merge(part)
                     tok.copy_(ho.ids[:, 0].clamp(min=0))
-                    return hidden, ho
+                    return (hidden, ho, *extra)
 
                 # (params, tok, k, v) bound; the warm-up's tokens undone
                 table[key] = Step(fn, self.device, self._counter(key),

@@ -568,6 +568,67 @@ def test_decode_step_replay_equals_eager_step(cuda, layout, head):
     sched.run(timeout=120.0)
 
 
+def _moe_decoder(cuda, capacity_factor, max_streams=4):
+    """A two-layer MoE decoder (6 experts padded to 8, top 2, a shared
+    expert) with paged KV and an LSS head: dropless with the published
+    routing weights and an untied head (``capacity_factor`` None), or the
+    registry's capacity-limited, renormalised, tied routing."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import LMDecoder
+    dropless = capacity_factor is None
+    cfg = T.TransformerConfig(
+        name="gpu-moe-decode", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=128, vocab=4096, qkv_bias=True,
+        dtype=torch.bfloat16, kv_chunk=32, moe_style="replace",
+        n_experts=6, n_experts_padded=8, moe_top_k=2, moe_d_ff=32,
+        shared_expert_ff=48, capacity_factor=capacity_factor,
+        norm_topk_prob=not dropless, tie_embeddings=not dropless)
+    params = T.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                           device=cuda)
+    dec = LMDecoder(params, cfg, LSSConfig(k_bits=6, n_tables=1),
+                    max_streams=max_streams, max_len=64, kv_layout="paged",
+                    kv_page_tokens=16)
+    dec.engine.fit_random(torch.Generator(cuda).manual_seed(1))
+    return dec
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 1.25])
+def test_moe_decode_step_replay_returns_routing_counts(cuda,
+                                                       capacity_factor):
+    """An MoE model's fused decode step returns each layer's tokens per
+    expert after its HeadOutput.  A replay gives the eager step's bits,
+    the counts included; every pool row, the parked one too, is counted
+    at top_k distinct experts a layer and no padded expert takes a token;
+    the counts come home beside the ids in the step's one copy."""
+    dec = _moe_decoder(cuda, capacity_factor)
+    cfg = dec.cfg
+    sched = dec.scheduler(head="lss")
+    for p in _prompts(3):                   # 3 of 4 slots: one parked
+        sched.submit(p, max_new_tokens=12)
+    sched.tick()                            # 3 joins, step 1 (capture)
+    assert sched.decode_step().captured
+    ops = sched.pool.step_operands()
+    snap = [sched.tok.clone(), ops[0].clone(), ops[1].clone(),
+            *(torch.from_numpy(o).to(cuda) for o in ops[2:])]
+    sched.tick()                            # step 2, replayed
+    got_hidden, got, got_counts = sched._inflight.out
+    with torch.no_grad():
+        want_hidden, want, want_counts = sched.decode_step().fn(dec.params,
+                                                                *snap)
+    torch.cuda.synchronize()
+    assert torch.equal(got_hidden, want_hidden)
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got_counts, want_counts)
+    counts = got_counts.cpu().numpy()
+    assert counts.shape == (cfg.n_layers, cfg.n_experts_padded)
+    assert (counts.sum(1) == sched.tok.shape[0] * cfg.moe_top_k).all()
+    assert not counts[:, cfg.n_experts:].any()
+    ids, host_counts = sched._inflight.host.wait()
+    np.testing.assert_array_equal(ids, got.ids.cpu().numpy())
+    np.testing.assert_array_equal(host_counts, counts)
+    sched.run(timeout=120.0)
+
+
 @pytest.mark.parametrize("head", ["lss", "full"])
 def test_inplace_kv_under_the_pipeline_with_slots_rejoining(cuda, head):
     """Six sessions with staggered budgets through two slots: each freed

@@ -9,6 +9,13 @@ port's paths at Delicious-200K's full width (random weights from a seed):
   ``qwen2-0.5b-lss-reason`` cell's step (64 rows, 14 / 2 heads, head_dim
   64, pages of 128, max_len 5,632, one layer's arenas) against its plain
   version, timed cold beside its byte bound at the rows' lengths;
+* ``prefill_attention``: the causal prefill-attention kernel at one layer
+  of Qwen2-0.5B's prefill buckets (1,024, 2,048, 4,096; 14 / 2 heads of
+  64) and of Qwen1.5-MoE's 512 (16 / 16 of 128) against its plain version
+  (``attention_blockwise``), within an ulp of bf16, timed cold beside its
+  bound at the bf16 tensor cores' peak and beside the library's
+  ``scaled_dot_product_attention`` at the same shape; the decode phases
+  then require one launch a layer for each prompt forward they run;
 * ``main_path``: serves requests through the XC model's query embedding,
   ``lss_predict`` (the fused ``lss_topk`` kernel), ``retrieve`` (the
   ``simhash_codes`` kernel) for label recall, and the exact full head;
@@ -209,6 +216,11 @@ try:
     from repro_torch.kernels.lss_topk import lss_topk
     from repro_torch.kernels.lss_topk import ops as lss_topk_ops
     from repro_torch.kernels.lss_topk.ref import lss_topk_ref
+    from repro_torch.kernels.prefill_attention import prefill_attention
+    from repro_torch.kernels.prefill_attention.ops import (
+        prefill_attention_cuda)
+    from repro_torch.kernels.prefill_attention.ref import (
+        prefill_attention_ref)
     from repro_torch.kernels.simhash_codes import simhash_codes
     from repro_torch.kernels.simhash_codes.ops import (simhash_codes_cuda,
                                                        simhash_codes_plan)
@@ -276,6 +288,7 @@ PREEMPT_ATOL = 1e-5
 # ---- the card's published peaks (H100 SXM data sheet) for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
+PEAK_BF16_FLOPS = 989e12   # the tensor cores, dense
 SPIN_CLOCK_HZ = 1.98e9     # boost clock: converts host seconds to spin cycles
 
 SEED = 0
@@ -444,9 +457,9 @@ def compare_bucket_logits(q, w_flat, slab_ids):
 
 # ------------------------------------------------------------- bounds --
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_peak=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / flops_peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, flops)
 
@@ -776,6 +789,120 @@ def phase_decode_attention(dev):
                      "replaces": None, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None}
+    return entry
+
+
+# prefill_attention: (model, query heads, KV heads, head_dim, prompt
+# widths) at the buckets the chat and MoE reason cells prefill, with the
+# models' chunks for the plain version
+PREFILL_SHAPES = (("qwen2-0.5b", 14, 2, 64, (1024, 2048, 4096)),
+                  ("qwen2-moe-a2.7b", 16, 16, 128, (512,)))
+PREFILL_CHUNKS = (512, 2048)
+
+
+def prefill_attention_bound_ms(s, n, kv, h, isz=2):
+    """q.k and p.v over the S(S+1)/2 causal pairs, 4 * N * H operations
+    a pair at the bf16 tensor cores' peak; q, k and v read, the output
+    written."""
+    return bound((2 * s * n + 2 * s * kv) * h * isz, 4 * n * h * s * (s + 1) / 2,
+                 PEAK_BF16_FLOPS)
+
+
+def bf16_ulps(got, want, mag):
+    """The largest error of a bf16 output against the plain version's, in
+    ulps of bf16 at the plain value, less what two fp32 computations of it
+    may differ by: 2^-19 of ``mag`` = sum_j p_j |v_j| (the size of the
+    terms a cancelling output sums)."""
+    g, w = got.float(), want.float()
+    ulp = 2.0 ** (torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -120))) - 7)
+    beyond = ((g - w).abs() - 2.0 ** -19 * mag.float()).clamp(min=0)
+    return float((beyond / ulp).max())
+
+
+def prefill_library(q, k, v, want, mag):
+    """The library's causal attention at the same shape, for the kernel
+    table (the port never calls it): ``scaled_dot_product_attention`` on
+    float32 copies of q, k, v by the memory-efficient backend (p in
+    float32, the plain version's precision) and on the bf16 operands by
+    the flash backend (p rounded to bf16).  The KV heads are repeated to
+    the query heads first, outside the time.  Returns each backend's
+    device ms (cold L2) and its error against the plain version in the
+    units of :func:`bf16_ulps`."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    r = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(r, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    ms, ulps = {}, {}
+    for name, backend, dtype in (
+            ("fp32_efficient", SDPBackend.EFFICIENT_ATTENTION,
+             torch.float32),
+            ("bf16_flash", SDPBackend.FLASH_ATTENTION, torch.bfloat16)):
+        a, b, c = (t.to(dtype) for t in (qt, kt, vt))
+
+        def run():
+            return torch.nn.functional.scaled_dot_product_attention(
+                a, b, c, is_causal=True)
+
+        with sdpa_kernel(backend):
+            got = run().transpose(1, 2).to(q.dtype)
+            ms[name] = time_ms(run)
+        ulps[name] = bf16_ulps(got, want, mag)
+    return ms, ulps
+
+
+def phase_prefill_attention(dev):
+    """The kernel against its plain version (``attention_blockwise`` at the
+    models' chunks) at one layer of Qwen2-0.5B's prefill buckets and of
+    Qwen1.5-MoE's 512: every output within an ulp of bf16, the same bits
+    again.  Device ms (cold L2) beside the bound (operations, bf16 peak),
+    the plain version's ms and the library's (:func:`prefill_library`);
+    the entry is Qwen2-0.5B's 4,096."""
+    entry = None
+    for model, n, kv, h, widths in PREFILL_SHAPES:
+        for s in widths:
+            gen = torch.Generator(device=dev).manual_seed(SEED + s)
+            q, k, v = (torch.randn((1, s, heads, h), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for heads in (n, kv, kv))
+            launches = prefill_attention_cuda.launches
+            got = prefill_attention(q, k, v, *PREFILL_CHUNKS)
+            want = prefill_attention_ref(q, k, v, *PREFILL_CHUNKS)
+            mag = prefill_attention_ref(q, k, v.abs(), *PREFILL_CHUNKS)
+            again = prefill_attention(q, k, v, *PREFILL_CHUNKS)
+            torch.cuda.synchronize()
+            ulps = bf16_ulps(got, want, mag)
+            err = float((got.float() - want.float()).abs().max())
+            require(ulps <= 1.0, f"prefill_attention ({model}, S {s}): an "
+                    f"output is {ulps} ulps of bf16 off the plain version")
+            require(torch.equal(again, got), f"prefill_attention ({model}, "
+                    f"S {s}): a second launch gave other bits")
+            require(prefill_attention_cuda.launches == launches + 2,
+                    "prefill_attention: the wrapper did not launch once a "
+                    "call")
+            ms = time_ms(lambda: prefill_attention(q, k, v, *PREFILL_CHUNKS))
+            plain = time_ms(lambda: prefill_attention_ref(
+                q, k, v, *PREFILL_CHUNKS), iters=5)
+            library_ms, library_ulps = prefill_library(q, k, v, want, mag)
+            b_ms, b_by, nbytes, flops = prefill_attention_bound_ms(s, n, kv,
+                                                                   h)
+            emit({"phase": "prefill_attention", "model": model, "s": s,
+                  "n": n, "kv": kv, "h": h, "max_abs_err": err,
+                  "max_err_bf16_ulps": ulps, "ms": ms, "plain_ms": plain,
+                  "library_ms": library_ms,
+                  "library_err_bf16_ulps": library_ulps,
+                  "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                  "flops": flops, "roofline_pct": 100.0 * b_ms / ms})
+            if model == "qwen2-0.5b" and s == 4096:
+                entry = {"name": "prefill_attention", "route": "cuda",
+                         "source": "src/repro_torch/csrc/prefill_attention.cu",
+                         "replaces": None, "shape": {"n": n, "kv": kv, "h": h,
+                                                     "s": s},
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": library_ms["fp32_efficient"],
+                         "library": "scaled_dot_product_attention, "
+                                    "float32, memory-efficient backend"}
     return entry
 
 
@@ -1243,6 +1370,32 @@ def reset(counters):
 def read(counters):
     torch.cuda.synchronize()
     return {fn.__name__: fn.launches for fn in counters}
+
+
+def count_prefill_forwards():
+    """Wrap ``transformer.prefill`` (every prompt's forward, on whichever
+    path) in a counter with the kernel wrappers' ``launches``, so that a
+    path's prefills are counted apart from the kernel's launches; returns
+    the counter, which ``reset`` / ``read`` / ``uncounted`` take."""
+    inner = T.prefill
+
+    def prefill_forwards(*args, **kwargs):
+        prefill_forwards.launches += 1
+        return inner(*args, **kwargs)
+
+    prefill_forwards.launches = 0
+    T.prefill = prefill_forwards
+    return prefill_forwards
+
+
+def check_prefills(launches, n_layers, what):
+    """Each prompt forward of a path's counted run launched the
+    prefill-attention kernel once a layer; returns the path's counts."""
+    n, got = launches["prefill_forwards"], launches["prefill_attention_cuda"]
+    require(n > 0 and got == n_layers * n,
+            f"{what}: prefill_attention wrapper launches {got}, not one a "
+            f"layer ({n_layers}) in each of {n} prompt forwards")
+    return {"forwards": n, "launches": got}
 
 
 def check_rows(rows, m, what):
@@ -3206,6 +3359,7 @@ def phase_decode(dev, smi, counters):
             f"decode step and the first-token step of each layout)")
     require(launches["bucket_logits_cuda"] == 0,
             "decode: bucket_logits was launched")
+    check_prefills(launches, cfg.n_layers, "decode")
     attn_builds = decode_builds(dense) + decode_builds(paged)
     require(launches["decode_attention_cuda"]
             == 2 * cfg.n_layers * attn_builds,
@@ -3360,6 +3514,7 @@ def zoo_lm_decode(dev, smi, counters, spec, cfg, prompts, new_tokens,
             f"{what}: lss_topk was not launched")
     require(launches["bucket_logits_cuda"] == 0,
             f"{what}: bucket_logits was launched")
+    check_prefills(launches, cfg.n_layers, what)
     emit({"phase": what, "model": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab,
           "experts": cfg.n_experts_padded, "top_k": cfg.moe_top_k,
@@ -4395,6 +4550,7 @@ def phase_refresh_decode(dev, smi, counters, state, injected):
     require(launches["lss_topk_cuda"] > 0
             and launches["bucket_logits_cuda"] == 0,
             f"refresh_decode: wrapper launches {launches}")
+    check_prefills(launches, dec.cfg.n_layers, "refresh_decode")
     with uncounted(counters):
         cold = LMDecoder(state["params"], dec.cfg, lss_cfg,
                          max_streams=DECODE_STREAMS, max_len=DECODE_MAX_LEN,
@@ -4644,6 +4800,7 @@ def main() -> int:
     phase_lss_topk(dev, gen, w_aug, DELICIOUS)
     phase_bucket_logits(dev, gen, w_aug, DELICIOUS)
     attention = phase_decode_attention(dev)
+    prefill = phase_prefill_attention(dev)
     launches, q0 = phase_main_path(
         dev, model, index, data,
         (simhash_codes_cuda, lss_topk_ops.lss_topk_cuda))
@@ -4673,12 +4830,15 @@ def main() -> int:
     sharded_train_launches = phase_sharded_train(dev, smi)
     refresh_launches, injected = phase_refresh(dev, smi, res, counters)
     del res
-    # the decode paths also count the decode-attention wrapper's launches
-    decode_counters = counters + (decode_attention_cuda,)
+    # the decode paths also count the attention wrappers' launches and the
+    # prompts' forwards
+    decode_counters = counters + (decode_attention_cuda,
+                                  prefill_attention_cuda,
+                                  count_prefill_forwards())
     decode_launches, decode_device, decode_state = phase_decode(
         dev, smi, decode_counters)
-    refresh_decode_launches = phase_refresh_decode(dev, smi, counters,
-                                                   decode_state, injected)
+    refresh_decode_launches = phase_refresh_decode(
+        dev, smi, decode_counters, decode_state, injected)
     del decode_state
     launch_launches = phase_launch(smi)
     fleet_launch_launches = phase_fleet_launch(smi)
@@ -4737,6 +4897,17 @@ def main() -> int:
         "arctic_decode": arctic["launches"]["decode_attention_cuda"],
         "arctic_decode_profiler": arctic["device"]["decode_attn"]}
     line["kernels"].append(attention)
+    # the prefill kernel's wrapper launches and the prompt forwards on each
+    # model path (one launch a layer a forward, checked on each path)
+    prefill["launches"] = decode_launches["prefill_attention_cuda"]
+    prefill["launches_by_path"] = {
+        path: {"launches": n["prefill_attention_cuda"],
+               "forwards": n["prefill_forwards"]}
+        for path, n in (("decode", decode_launches),
+                        ("refresh_decode", refresh_decode_launches),
+                        ("moe_decode", moe["launches"]),
+                        ("arctic_decode", arctic["launches"]))}
+    line["kernels"].append(prefill)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(line)
     print(smi, flush=True)

@@ -12,7 +12,8 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.bucket_logits import bucket_logits
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.lss_topk import lss_topk
+from repro_torch.kernels.prefill_attention import prefill_attention
 from repro_torch.kernels.simhash_codes import simhash_codes
 
 __all__ = ["registry", "simhash_codes", "lss_topk", "bucket_logits",
-           "decode_attention"]
+           "decode_attention", "prefill_attention"]

@@ -38,7 +38,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/kernels (src/repro_torch/kernels/_build.py -> parents[3])
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("simhash_codes", "lss_topk", "bucket_logits",
-           "decode_attention")
+           "decode_attention", "prefill_attention")
 # every header a csrc/*.cu includes: each is part of every library's digest
 HEADERS = ("bulk_copy.cuh", "simhash.cuh", "warp_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,7 +6,8 @@ Attention has three execution paths, as in the JAX package:
   * ``naive``     — full [S, S] scores; oracle for tests.
   * ``blockwise`` — online softmax over KV chunks (a Python loop where JAX
                     scans); memory O(S·c) instead of O(S²); the training
-                    and prefill path.
+                    path, and the ``prefill_attention`` op's plain
+                    version (on the card its kernel).
   * ``decode``    — one query position against a KV cache.
 
 Every path keeps the JAX formulas: fp32 upcast of the operands, a

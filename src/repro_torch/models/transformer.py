@@ -14,7 +14,8 @@ again in the backward pass (``torch.utils.checkpoint``).
 Entry points:
   * ``lm_loss(params, batch, cfg)``     — training loss (blockwise attn);
     autograd gives its gradient.
-  * ``prefill(params, tokens, cfg, max_len)`` — build a KV cache.
+  * ``prefill(params, tokens, cfg, max_len)`` — build a KV cache (each
+    layer's attention through the ``prefill_attention`` op).
   * ``decode_step(params, token, cache, cfg)`` — one token; returns the
     final-norm hidden state so the serving engine can apply either the
     full vocab head or the LSS head (the paper's technique).
@@ -60,6 +61,7 @@ import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.prefill_attention import prefill_attention
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 from repro_torch.utils.sharding import (P, contiguous_stride, embedding,
@@ -271,12 +273,17 @@ def _write_cache(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor
     return cache
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
-    """Blockwise causal attention over each rank's own rows and heads:
+def _attention(q, k, v, cfg: TransformerConfig, mode: str):
+    """Causal attention over each rank's own rows and heads.  A prefill
+    of plain tensors goes through the ``prefill_attention`` op (on the
+    card one kernel launch a layer; on the CPU ``attention_blockwise``
+    itself); training, which needs a backward, stays blockwise.
     ``DTensor`` q, k, v (laid out alike, heads whole on every rank) are
-    taken apart into their local pieces and the output put back together
-    the same way."""
+    taken apart into their local pieces, attended blockwise, and the
+    output put back together the same way."""
     if not is_dtensor(q):
+        if mode == "prefill":
+            return prefill_attention(q, k, v, cfg.kv_chunk, cfg.q_chunk)
         return L.attention_blockwise(q, k, v, causal=True,
                                      kv_chunk=cfg.kv_chunk,
                                      q_chunk=cfg.q_chunk)
@@ -328,7 +335,7 @@ def _attn_block(x, lp, cfg: TransformerConfig, rope, mode, cache=None,
                                cache.max_len)[:, None]
         new_cache = (cache.k, cache.v)
     else:
-        out = _attention(q, k, v, cfg)
+        out = _attention(q, k, v, cfg, mode)
         new_cache = (k, v) if mode == "prefill" else None
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     if tp and (cfg.n_heads % tp or cfg.n_kv_heads % tp):

@@ -364,8 +364,11 @@ class DecodeScheduler:
                 self._epoch = self.engine.pin_epoch()
             slot = self.pool.alloc()
             try:
-                with obs.span("prefill", sid=sess.sid, slot=slot,
-                              plen=int(sess.prompt.shape[0])) as pspan:
+                plen = int(sess.prompt.shape[0])
+                # bucket: the width the forward runs at (padded), which
+                # prefill_attn_roofline's bound reads
+                with obs.span("prefill", sid=sess.sid, slot=slot, plen=plen,
+                              bucket=_prefill_bucket(plen)) as pspan:
                     tok0, routing = self._prefill(slot, sess.prompt)
                     pspan.set(**_routing_attrs(routing))
             except KVPoolExhaustedError as exc:

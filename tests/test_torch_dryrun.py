@@ -33,6 +33,8 @@ from repro_torch.core.simhash import (augment_neurons,  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.bucket_logits.ops import bucket_logits  # noqa: E402
 from repro_torch.kernels.lss_topk.ops import lss_topk  # noqa: E402
+from repro_torch.kernels.prefill_attention.ops import (  # noqa: E402
+    prefill_attention)
 from repro_torch.kernels.simhash_codes.ops import simhash_codes  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
@@ -77,6 +79,10 @@ def test_kernel_ops_count_their_registered_cost():
         "simhash_codes": ((q_aug, index.theta, t.k_bits, t.n_tables), {},
                           simhash_codes),
         "bucket_logits": ((q_aug, slabs, slab_ids), {}, bucket_logits),
+        "prefill_attention": ((torch.zeros(2, 96, 14, 64, dtype=torch.bfloat16),
+                               torch.zeros(2, 96, 2, 64, dtype=torch.bfloat16),
+                               torch.zeros(2, 96, 2, 64, dtype=torch.bfloat16),
+                               512, 2048), {}, prefill_attention),
     }
     for name, (args, kwargs, call) in calls.items():
         counter = DeviceCounter()

@@ -269,6 +269,9 @@ def test_tick_prefill_and_queue_span_tree():
     queues = {e["args"]["sid"]: e for e in spans if e["name"] == "queue"}
     prefills = {e["args"]["sid"]: e for e in spans if e["name"] == "prefill"}
     assert sorted(queues) == sorted(prefills) == [0, 1, 2]
+    # prompts of 5, 6 and 7 tokens: the width the forward ran at
+    assert [prefills[sid]["args"]["plen"] for sid in range(3)] == [5, 6, 7]
+    assert all(p["args"]["bucket"] == 8 for p in prefills.values())
     for sid, q in queues.items():
         assert q["args"]["status"] == "ok"
         assert _parent(q, ids) == "decode_session"

@@ -20,6 +20,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import qwen2_0_5b, qwen3_4b  # noqa: E402
 from repro_torch.configs.reduced import reduced_model_cfg  # noqa: E402
 from repro_torch.convert import transformer_params_from_numpy  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.testing.parity import assert_close  # noqa: E402
 
@@ -234,6 +235,33 @@ def test_decode_matches_forward(arch):
     full, _, _ = T.forward(tp, torch.cat([toks, nxt[:, None]], 1), cfg)
     assert float((full[:, -1] - h2).abs().max()) < 1e-3
     assert cache2.length == 18
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_attends_through_the_op_and_training_does_not(arch):
+    """A prefill sends each layer's attention to the ``prefill_attention``
+    op (on the CPU its plain version, ``attention_blockwise`` at the
+    config's chunks: the hidden state is the blockwise forward's, bit for
+    bit); a training forward never calls it and still has a gradient."""
+    cfg = _torch_cfg(arch)
+    tp = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(5, 2, 128, cfg.vocab))   # 2 q chunks
+
+    def calls():
+        return registry.dispatch_counts().get(("prefill_attention", "ref"), 0)
+
+    before = calls()
+    with torch.no_grad():
+        hidden, _ = T.prefill(tp, toks, cfg, max_len=160)
+        blockwise, _, _ = T.forward(tp, toks, cfg, mode="train")
+    assert calls() == before + cfg.n_layers
+    assert torch.equal(hidden, blockwise)
+    wq = tp["layers"]["wq"].detach().requires_grad_(True)
+    params = {**tp, "layers": {**tp["layers"], "wq": wq}}
+    loss = T.lm_loss(params, {"tokens": toks, "labels": toks}, cfg)
+    (grad,) = torch.autograd.grad(loss, [wq])
+    assert calls() == before + cfg.n_layers
+    assert float(grad.abs().sum()) > 0
 
 
 def test_grads_flow_everywhere():
